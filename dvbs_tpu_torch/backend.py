@@ -1,0 +1,45 @@
+"""Kernel dispatch by the tensor's device, and the kernels' launch counts.
+
+dvbs_tpu picks its Pallas kernels by `jax.default_backend()`
+(frontend.dispatch_resample, viterbi_pallas.select_decoder). The port
+picks by where the data lies: a CUDA tensor goes to the hand-written
+kernel and a CPU tensor to the kernel's plain PyTorch version. There is
+no fallback: on a CUDA tensor a kernel that fails to build or launch
+raises.
+"""
+from __future__ import annotations
+
+import torch
+
+# launches per kernel; each wrapper adds one where it launches its kernel
+LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU
+    tensor (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise unless `t` is what a kernel takes: dtype, shape, device,
+    contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA device and skips without one; they run on
+the machine with the card, which has no JAX, so this file (unlike the
+other test_torch_* files) imports nothing of JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+Tolerances and why:
+- kernel A (int8 layered LDPC): bit-exact hard, n_bad, trials (integer
+  arithmetic);
+- kernel B (resampler): max abs error <= 1e-5 (float32; the kernel
+  rounds each multiply and add as the plain version does);
+- the small bank on the card against the same bank on the CPU: decoded
+  bytes, flags and frame starts exact, quality within 1e-3 (float32
+  sums in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from dvbs_tpu.spec import ldpc_spec, modcod
+from dvbs_tpu.tx import channel, dvbs2_mod
+from dvbs_tpu_torch import backend, tables
+from dvbs_tpu_torch.ops import ldpc_kernel
+from dvbs_tpu_torch.ops import resample_kernel as rk
+from dvbs_tpu_torch.ops.frontend import pack_cs4
+from dvbs_tpu_torch.parallel import mesh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _resample_case(name):
+    rng = np.random.default_rng({"drift": 0, "ragged": 1, "large": 2}[name])
+    S = {"drift": 8192, "ragged": 4096 + 128, "large": 8192}[name]
+    n2 = 2 * S + 64
+    y = (rng.normal(size=(3, n2)) + 1j * rng.normal(size=(3, n2))
+         ).astype(np.complex64)
+    k = np.arange(S)
+    if name == "large":
+        t = np.stack([2.0 * k - 1.4 + 4e-5 * k, 2.0 * k + 3.2 - 3e-5 * k,
+                      2.0 * k + 0.5])
+    else:
+        t = np.stack([2.0 * k + 0.3 + 0.17 * c + (1 + 0.2 * c) * 1e-5 * k
+                      for c in range(3)])
+    return y, t.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["drift", "ragged", "large"])
+def test_resample_kernel_matches_plain(dev, name):
+    y, t = _resample_case(name)
+    coef, fmid, fhalf = tables.farrow_coeffs()
+    rb, u, bias = rk.shifts_and_band(torch.from_numpy(t).to(dev),
+                                     (fmid, fhalf))
+    args = (torch.from_numpy(y).to(dev), u, rb, bias,
+            torch.from_numpy(coef).to(dev), t.shape[1])
+    got = rk.resample_cuda(*args)
+    ref = rk.resample_plain(*args)
+    torch.cuda.synchronize()
+    assert float(torch.abs(got - ref).max()) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def c4_llrs():
+    code = ldpc_spec.get_code("C4")
+    rng = np.random.default_rng(0)
+    cw = code.encode(rng.integers(0, 2, (128, code.K)).astype(np.uint8))
+    sigma = np.sqrt(10 ** (-3.0 / 10))
+    y = 1.0 - 2.0 * cw.astype(np.float32) + \
+        rng.normal(0, sigma, cw.shape).astype(np.float32)
+    return ldpc_kernel.quantize_llrs(torch.from_numpy(2.0 * y / sigma ** 2))
+
+
+@pytest.mark.parametrize("n_iters,early_exit", [(1, False), (3, False),
+                                                (12, True)])
+def test_ldpc_kernel_matches_plain(dev, c4_llrs, n_iters, early_exit):
+    kt = tables.kernel_tables("C4")
+    x = c4_llrs.to(dev)
+    got = ldpc_kernel.decode_cuda(x, kt, n_iters, early_exit=early_exit)
+    ref = ldpc_kernel.decode_plain(x, kt, n_iters, early_exit=early_exit)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_ldpc_kernel_b4_one_sweep(dev):
+    kt = tables.kernel_tables("B4")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-25, 26, (128, kt["N"]))
+                         .astype(np.int8)).to(dev)
+    got = ldpc_kernel.decode_cuda(x, kt, 1, early_exit=False)
+    ref = ldpc_kernel.decode_plain(x, kt, 1, early_exit=False)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_dispatch_counts_launches_and_checks_inputs(dev, c4_llrs):
+    backend.reset_launches()
+    ldpc_kernel.decode(c4_llrs[:4].to(dev), "C4", n_iters=3,
+                       early_exit=False)
+    assert backend.LAUNCHES["ldpc_layered"] == 3
+    with pytest.raises(TypeError):
+        ldpc_kernel.decode_cuda(c4_llrs[:4].to(dev, torch.int16),
+                                tables.kernel_tables("C4"), 1)
+
+
+def test_small_bank_on_card_matches_cpu(dev):
+    cfg = modcod.get_config(4, short=True)
+    block = mesh.bank_block_symbols(2, mc=4, short=True, frames_total=4)
+    sigs = []
+    for seed, cfo in ((7, 0.004 * np.pi), (8, -0.009 * np.pi)):
+        pkts = dvbs2_mod.random_ts_packets(120, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=6.0, cfo=cfo,
+                           delay_samples=0.3, seed=seed)
+        sigs.append(pack_cs4(y[:2 * block]))
+    x = torch.from_numpy(np.stack(sigs))
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        step, _ = mesh.build_carrier_bank(2, mc=4, short=True,
+                                          block_symbols=block, ingest="cs4",
+                                          device=d)
+        backend.reset_launches()
+        outs.append({k: v.cpu().numpy() for k, v in step(x.to(d)).items()})
+        if d.type == "cuda":
+            assert all(n > 0 for n in backend.LAUNCHES.values())
+    cpu, gpu = outs
+    assert cpu["ldpc_ok"].all()
+    for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
