@@ -15,19 +15,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. kernel B (barrel+Farrow resampler) against its plain version at
    C=8, S=552960 with drifting positions of both signs: max abs error
    <= 1e-5;
-5. the main path: DVBS2BankStream with 8 carriers of DVB-S2 QPSK 1/2
-   normal frames, cs4 ingest, fed bench.py's headline signals for >= 4
-   blocks plus flush. Every carrier's TS must be one byte-exact
-   contiguous run of its own packets, every frame must decode, and both
-   kernels must have been launched. Then the device-resident bank step
-   is timed with CUDA events.
+5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
+   bit for bit on every output bit: noisy codewords at the DVB-S bank's
+   shape [4096, 704, 2] with every third Y erased (whose segment cores
+   must also equal the bits sent), a ragged [130, 151, 2], and one
+   all-erasure segment;
+6. the DVB-S2 main path: DVBS2BankStream with 8 carriers of DVB-S2 QPSK
+   1/2 normal frames, cs4 ingest, fed bench.py's headline signals for
+   >= 4 blocks plus flush. Every carrier's TS must be one byte-exact
+   contiguous run of its own packets, every frame must decode, and
+   kernels A and B must have been launched. Then the device-resident
+   bank step is timed with CUDA events;
+7. the DVB-S main path: DVBSBankStream with 8 carriers of DVB-S rate
+   1/2, cs4 ingest, 2^19 samples per block, fed bench.py's DVB-S
+   signals for 6 blocks' worth. Every carrier must stay locked with a
+   re-encode BER < 0.05, its TS must be one byte-exact contiguous run
+   of >= 100 of its own packets, and kernels B and C must have been
+   launched. The host tail's (native or python) time over the streamed
+   run is reported, and the device-resident step is timed with CUDA
+   events.
 
-With --profile TRACE.json, a torch.profiler breakdown of the bank step
-by layer and kernel follows phase 5, and its Chrome trace is written to
-TRACE.json.
+With --profile TRACE.json, a torch.profiler breakdown of each bank step
+by layer and kernel follows its phase; the DVB-S2 step's Chrome trace is
+written to TRACE.json and the DVB-S step's beside it (TRACE_dvbs.json).
 
-Prints the kernels' JSON line, then as its last line
-{"ok": true, "device": {...}}. Needs one CUDA device.
+Prints the kernels' JSON line (launches: the count of the main paths'
+streamed runs, each run with the counts set to 0 just before it), then
+as its last line {"ok": true, "device": {...}}. Needs one CUDA device.
 """
 import argparse
 import json
@@ -41,6 +55,8 @@ N_CARRIERS = 8
 MC, SHORT = 4, False            # QPSK 1/2, normal frames (LDPC table B4)
 E2E_BLOCKS = 4
 RESAMPLE_TOL = 1e-5
+DVBS_BLOCK = 2 * (1 << 18)      # bench.py's DVB-S block, samples per carrier
+DVBS_BLOCKS = 5                 # streamed: (DVBS_BLOCKS + 1) blocks' worth
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -162,6 +178,53 @@ def phase_resample(torch, dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def phase_viterbi(torch, dev):
+    """Kernel C against its plain version, bit-exact on every output bit
+    (wings included), on three inputs."""
+    from dvbs_tpu.spec import dvbs_fec
+    from dvbs_tpu_torch.ops import viterbi_kernel as vk
+    rng = np.random.default_rng(3)
+    B, T, wing = 4096, 704, 96           # the DVB-S bank's segments
+    truth = rng.integers(0, 2, (B, T))
+    bp = np.concatenate([np.zeros((B, 6), np.int64), truth], axis=1)
+    xy = np.stack([sum(bp[:, j:j + T] for j in range(7) if (g >> j) & 1) % 2
+                   for g in (dvbs_fec.G1, dvbs_fec.G2)], axis=2)
+    bank = (1.0 - 2.0 * xy) * 2.0 + rng.normal(0, 0.8, (B, T, 2))
+    bank[:, ::3, 1] = 0.0                # depuncture-style erasures
+    ragged = rng.normal(0, 1.5, (130, 151, 2))
+    ragged[:, ::3, 1] = 0.0
+    cases = (("noisy codewords [4096, 704, 2], every third Y erased", bank),
+             ("ragged [130, 151, 2]", ragged),
+             ("all-erasure [1, 704, 2]", np.zeros((1, T, 2))))
+    err = 0
+    for label, x in cases:
+        xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+        got = vk.decode_cuda(xt)
+        ref = vk.decode_plain(xt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"kernel C {label}: {int((got != ref).sum())} bits differ "
+                f"from the plain version")
+        err = max(err, int((got.to(torch.int32) - ref.to(torch.int32))
+                           .abs().max()))
+        print(f"kernel C {label}: bit-exact on all {got.numel()} bits")
+    big = torch.from_numpy(bank.astype(np.float32)).to(dev)
+    core = vk.decode_cuda(big)[:, wing:T - wing].cpu().numpy()
+    n_bad = int((core != truth[:, wing:T - wing]).sum())
+    if n_bad:
+        raise AssertionError(f"kernel C: {n_bad} core bits differ from the "
+                             f"bits sent")
+    ms = cuda_ms(lambda: vk.decode_cuda(big), 20)
+    plain_ms = cuda_ms(lambda: vk.decode_plain(big), 2)
+    print(f"kernel C [{B}, {T}, 2]: cores equal the bits sent; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
+    return dict(name="viterbi_acs", route="cuda",
+                source="dvbs_tpu_torch/csrc/viterbi_acs.cu",
+                replaces="dvbs_tpu/ops/viterbi_pallas.py:247",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_main_path(torch, dev, smi):
     import bench
     from dvbs_tpu.spec import modcod
@@ -215,8 +278,9 @@ def phase_main_path(torch, dev, smi):
         assert npk >= want, f"c{c}: {npk} packets < {want}"
     print(f"TS: every carrier one byte-exact contiguous run "
           f"(>= {(E2E_BLOCKS + 1) * F * (kb // 188) - 2} packets each)")
-    for name, cnt in launches.items():
-        assert cnt > 0, f"kernel {name} was not launched on the main path"
+    for name in ("ldpc_layered", "resample_farrow"):
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the DVB-S2 main path"
 
     # device-resident step: min and mean over 3 batches of 10 reps
     dev_in = torch.from_numpy(np.stack([s[:n] for s in sigs])).to(dev)
@@ -228,16 +292,96 @@ def phase_main_path(torch, dev, smi):
     print(f"bank step [{N_CARRIERS} x {n} cs4 samples, {N_CARRIERS * F} "
           f"frames]: min {ms_min:.3f} ms, mean {ms_mean:.3f} ms per block "
           f"(3 batches x 10), {msps:.2f} Msamples/s at the min; card {smi}")
-    return launches, st.step_fn, dev_in
+    return launches, lambda: st.step_fn(dev_in)
 
 
-LAYERS = ("frontend", "timing", "plsync", "phase", "demap", "ldpc",
-          "bch_pack")
+def dvbs_signals():
+    """bench.py's DVB-S signals (bench_dvbs): 8 distinct seam-free
+    rate-1/2 streams at 8 dB, packed to cs4, and their TS packets."""
+    from dvbs_tpu.tx import channel, dvbs_mod
+    from dvbs_tpu_torch.ops import frontend
+    need = (DVBS_BLOCKS + 1) * DVBS_BLOCK
+    # 16 samples per framed byte; a group is 8 x 204 framed bytes
+    n_groups = -(-need // (16 * 1632)) + 2
+    sigs, sents = [], []
+    for c in range(N_CARRIERS):
+        ts = dvbs_mod.random_ts_groups(n_groups, seed=40 + c)
+        tx = dvbs_mod.DVBSModulator(rate="1/2").ts_to_symbols(ts)
+        x = channel.shape(tx, sps=2)
+        y = channel.impair(x, snr_db=8.0, cfo=(0.004 + 0.002 * c) * np.pi,
+                           delay_samples=0.2 + 0.1 * c, sco_ppm=10.0,
+                           seed=50 + c)
+        assert len(y) >= need, (len(y), need)
+        sigs.append(frontend.pack_cs4(y[:need]))
+        sents.append(ts.reshape(-1, 188))
+    return sigs, sents, need
 
 
-def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
-    """Where the bank step's time goes, from a torch.profiler trace of
-    `reps` steps: kernel time per layer (kernels that start inside the
+def phase_dvbs(torch, dev, smi):
+    import bench
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.parallel.dvbs_bank import DVBSBankStream
+    n = DVBS_BLOCK
+    t0 = time.perf_counter()
+    sigs, sents, need = dvbs_signals()
+    print(f"DVB-S signals: {N_CARRIERS} x {need} cs4 samples "
+          f"({time.perf_counter() - t0:.1f} s)")
+    st = DVBSBankStream(N_CARRIERS, rate="1/2", block_samples=n,
+                        ingest="cs4", device=dev)
+    tail = "native" if st._native_tail else "python"
+    outs = [bytearray() for _ in range(N_CARRIERS)]
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    for lo in range(0, need, n):
+        for c, o in zip(st.feed([s[lo:lo + n] for s in sigs]), outs):
+            o.extend(c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(backend.LAUNCHES)
+    print(f"DVB-S main path: {N_CARRIERS} carriers x {need} samples "
+          f"streamed in {dt:.1f} s ({tail} host tail); locked "
+          f"{st.locked.tolist()}; ber {st.ber.tolist()}; launches "
+          f"{launches}")
+    assert st.locked.all() and (st.ber < 0.05).all(), \
+        f"DVB-S bank must stay locked: ber={st.ber}"
+    npk = [bench.contiguous_packets(bytes(outs[c]), sents[c], f"dvbs c{c}")
+           for c in range(N_CARRIERS)]
+    assert min(npk) >= 100, npk
+    print(f"DVB-S TS: every carrier one byte-exact contiguous run "
+          f"({min(npk)}..{max(npk)} packets)")
+    for name in ("viterbi_acs", "resample_farrow"):
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the DVB-S main path"
+
+    blocks = st.steps_run
+    print(f"DVB-S host tail ({tail}): {st.tail_seconds:.2f} s for {blocks} "
+          f"blocks of {N_CARRIERS} carriers, "
+          f"{N_CARRIERS * blocks * n / st.tail_seconds / 1e6:.2f} "
+          f"Msamples/s")
+
+    # device-resident step: min and mean over 3 batches of 10 reps
+    dev_in, hints = st.last_debug["dev_in"], st.last_debug["hints"]
+    out = st.step(dev_in, hints)
+    assert bool((out["ber"] < 0.05).all()), out["ber"]
+    batches = [cuda_ms(lambda: st.step(dev_in, hints), 10) for _ in range(3)]
+    ms_min, ms_mean = min(batches), sum(batches) / len(batches)
+    msps = N_CARRIERS * n / (ms_min * 1e-3) / 1e6
+    print(f"DVB-S bank step [{N_CARRIERS} x {n} cs4 samples, "
+          f"{N_CARRIERS * st.step.B} Viterbi segments]: min {ms_min:.3f} "
+          f"ms, mean {ms_mean:.3f} ms per block (3 batches x 10), "
+          f"{msps:.2f} Msamples/s at the min; card {smi}")
+    return launches, lambda: st.step(dev_in, hints)
+
+
+LAYERS_S2 = ("frontend", "timing", "plsync", "phase", "demap", "ldpc",
+             "bch_pack")
+LAYERS_DVBS = ("frontend", "timing", "carrier", "viterbi", "ber_pack")
+
+
+def phase_profile(torch, step, trace: str, layers: tuple, label: str,
+                  reps: int = 5):
+    """Where a bank step's time goes, from a torch.profiler trace of
+    `reps` calls of step(): kernel time per layer (kernels that start inside the
     layer's record_function range on the device timeline), the device's
     busy and idle share, the top kernels, and the host's enqueue time
     for one step (started on an idle device, without the profiler).
@@ -249,7 +393,7 @@ def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(dev_in)
+        step()
         enq.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     trace = Path(trace)
@@ -258,7 +402,7 @@ def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            step(dev_in)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     prof.export_chrome_trace(str(trace))
@@ -266,7 +410,7 @@ def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
     kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") in
                ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = [e for e in events if e.get("ph") == "X" and
-             e.get("cat") == "gpu_user_annotation" and e["name"] in LAYERS]
+             e.get("cat") == "gpu_user_annotation" and e["name"] in layers]
     busy_ms = sum(e["dur"] for e in kernels) / 1e3 / reps
     per_layer = collections.Counter()
     for k in kernels:
@@ -276,11 +420,11 @@ def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
                 break
         else:
             per_layer["(outside)"] += k["dur"]
-    print(f"profile ({reps} steps): host enqueue of one step "
+    print(f"profile of the {label} step ({reps} steps): host enqueue of one step "
           f"{min(enq):.3f} ms (min of 5, no profiler); with the profiler "
           f"on: wall {wall_ms:.3f} ms/step, kernels {busy_ms:.3f} ms/step, "
           f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
-    for name in LAYERS + ("(outside)",):
+    for name in layers + ("(outside)",):
         print(f"  layer {name:9s} kernels {per_layer[name] / 1e3 / reps:7.3f}"
               f" ms/step")
     by_name = collections.Counter()
@@ -296,7 +440,8 @@ def phase_profile(torch, step, dev_in, trace: str, reps: int = 5):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE.json",
-                    help="profile the bank step; write the trace here")
+                    help="profile the bank steps; write the DVB-S2 trace "
+                    "here and the DVB-S trace beside it")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -306,12 +451,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_card(torch)
     phase_build()
-    rows = [phase_ldpc(torch, dev), phase_resample(torch, dev)]
-    launches, step, dev_in = phase_main_path(torch, dev, smi)
+    rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
+            phase_viterbi(torch, dev)]
+    launches_s2, step = phase_main_path(torch, dev, smi)
     if args.profile:
-        phase_profile(torch, step, dev_in, args.profile)
+        phase_profile(torch, step, args.profile, LAYERS_S2, "DVB-S2")
+    launches_s, step = phase_dvbs(torch, dev, smi)
+    if args.profile:
+        trace = args.profile[:-5] if args.profile.endswith(".json") \
+            else args.profile
+        phase_profile(torch, step, trace + "_dvbs.json", LAYERS_DVBS,
+                      "DVB-S")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches_s2[r["name"]] + launches_s[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0}
+LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0, "viterbi_acs": 0}
 
 
 def reset_launches() -> None:

@@ -30,6 +30,7 @@ SIGNATURES = {
     "ldpc_layered_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P],
     "resample_farrow": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "viterbi_acs": [_P, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -55,11 +55,34 @@ def coarse_cfo_estimate(x: torch.Tensor) -> torch.Tensor:
     return torch.angle(r)
 
 
-def mix(x: torch.Tensor, freq: torch.Tensor) -> torch.Tensor:
-    """Multiply by exp(-j freq n); freq [C] rad/sample, freq*n in
-    float32 as the JAX version computes it."""
+def qpsk_residual_freq(z: torch.Tensor) -> torch.Tensor:
+    """Residual carrier frequency of QPSK symbols, rad/symbol, from the
+    4th-power spectral line: FFT peak, parabolic refinement, signed
+    wrap. z [C, S] -> [C]. z**4 is taken as (z*z)*(z*z), XLA's
+    integer_pow."""
+    n = z.shape[-1]
+    z2 = z * z
+    spec = torch.abs(torch.fft.fft(z2 * z2))
+    k = torch.argmax(spec, dim=-1, keepdim=True)
+    a = torch.gather(spec, -1, (k - 1) % n)
+    b = torch.gather(spec, -1, k)
+    c = torch.gather(spec, -1, (k + 1) % n)
+    delta = 0.5 * (a - c) / (a - 2 * b + c + 1e-12)
+    kf = k.to(torch.float32) + torch.clamp(delta, -0.5, 0.5)
+    kf = torch.where(kf > n / 2, kf - n, kf)
+    return ((2 * math.pi * kf / n) / 4.0)[..., 0]
+
+
+def mix(x: torch.Tensor, freq: torch.Tensor,
+        phase: torch.Tensor | None = None) -> torch.Tensor:
+    """Multiply by exp(-j (freq n + phase)); freq, phase [C] rad/sample
+    and rad. The argument is freq*n + phase in float32, in that order,
+    as the JAX version computes it: at n ~ 5e5 its rounding is part of
+    the result."""
     n = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
     arg = freq[..., None].to(torch.float32) * n
+    if phase is not None:
+        arg = arg + phase[..., None].to(torch.float32)
     return x * torch.polar(torch.ones_like(arg), -arg)
 
 
@@ -100,6 +123,13 @@ def fir_filter(x: torch.Tensor, taps: torch.Tensor,
         if h != 0.0:
             acc = acc + h * xp[:, j:j + n]
     return acc
+
+
+def matched_filter(x: torch.Tensor, rrc_taps: torch.Tensor,
+                   fir_rrc: torch.Tensor | None) -> torch.Tensor:
+    """The 65-tap RRC matched filter (tables.rrc_taps and its banded
+    matrix, frontend.matched_filter's defaults)."""
+    return fir_filter(x, rrc_taps, fir_rrc)
 
 
 def _oerder_meyr_terms(y2: torch.Tensor, mid_taps: torch.Tensor,
@@ -173,3 +203,14 @@ def recover_symbols_full(y2: torch.Tensor, mid_taps: torch.Tensor,
         tau_end = torch.where(use_pw, tau_end_pw, tau_end)
     z = resample_kernel.resample(y2, t, farrow_coef, farrow_band)
     return z, tau_u, tau_end[:, 0]
+
+
+def recover_symbols(y2: torch.Tensor, mid_taps: torch.Tensor,
+                    fir_mid: torch.Tensor | None, farrow_coef: torch.Tensor,
+                    farrow_band, n_windows: int = 8,
+                    tau_hint: torch.Tensor | None = None):
+    """recover_symbols_full without the extrapolated tau: (symbols
+    [C, n2//2], tau_u [C, n_windows])."""
+    z, tau_u, _ = recover_symbols_full(y2, mid_taps, fir_mid, farrow_coef,
+                                       farrow_band, n_windows, tau_hint)
+    return z, tau_u

@@ -5,8 +5,9 @@ the port derives them again here from the shared numpy layers
 (`dvbs_tpu.spec`, `dvbs_tpu.tx`). This module is the port's counterpart
 of carried-over weights: `receiver_tables` gathers what one receiver
 geometry needs into a dict of numpy arrays, and `to_torch` turns such a
-dict into tensors on a device. tests/test_torch_tables.py holds each
-builder equal to its JAX counterpart.
+dict into tensors on a device. tests/test_torch_tables.py (and
+tests/test_torch_viterbi.py for the trellis) holds each builder equal to
+its JAX counterpart.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from dvbs_tpu.spec import (bch_spec, constellations, ldpc_spec, modcod,
-                           plheader, scrambling)
+from dvbs_tpu.spec import (bch_spec, constellations, dvbs_fec, ldpc_spec,
+                           modcod, plheader, scrambling)
 from dvbs_tpu.tx import channel, dvbs2_mod
 
 LANES = 360                # QC circulant size of every DVB-S2 LDPC code
@@ -240,18 +241,90 @@ def kernel_tables(table: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K=7 rate-1/2 Viterbi trellis (viterbi.py, viterbi_pallas.py)
+# ---------------------------------------------------------------------------
+
+N_STATES = 64              # viterbi.N_STATES
+
+
+def _branch_xy(b: int, s: int) -> tuple[int, int]:
+    """(X, Y) coded bits of input bit b entering register s."""
+    v = (b << 6) | s
+    return (bin(v & dvbs_fec.G1).count("1") & 1,
+            bin(v & dvbs_fec.G2).count("1") & 1)
+
+
+@functools.lru_cache()
+def trellis():
+    """(prev [64, 2] int32, sign [64, 2, 2] float32) radix-2 tables
+    (viterbi._trellis): prev[ns, j] is the predecessor that drops LSB j,
+    sign[ns, j] the expected (X, Y) as +-1 (+1 = bit 0)."""
+    prev = np.zeros((N_STATES, 2), np.int32)
+    sign = np.zeros((N_STATES, 2, 2), np.float32)
+    for ns in range(N_STATES):
+        for j in range(2):
+            s = ((ns & 0x1F) << 1) | j
+            x, y = _branch_xy(ns >> 5, s)
+            prev[ns, j] = s
+            sign[ns, j] = (1.0 - 2.0 * x, 1.0 - 2.0 * y)
+    return prev, sign
+
+
+@functools.lru_cache()
+def trellis_k(k: int):
+    """Radix-2^k tables (viterbi._trellis_k): (sign [64, 2^k, 2k] the
+    expected +-1 outputs of the fused branch from predecessor
+    ((ns & low) << k) | j into ns, earliest (X, Y) first; bits_hi
+    [2^k, k] the k input bits as a function of ns's top k bits)."""
+    if not 1 <= k <= 6:
+        raise ValueError(f"radix 2^{k}: k must be 1..6")
+    R = 1 << k
+    sign = np.zeros((N_STATES, R, 2 * k), np.float32)
+    bits_hi = np.zeros((R, k), np.float32)
+    low_mask = (1 << (6 - k)) - 1
+    for hi in range(R):
+        bits_hi[hi] = [(hi >> i) & 1 for i in range(k)]
+    for ns in range(N_STATES):
+        bs = [(ns >> (6 - k + i)) & 1 for i in range(k)]
+        for j in range(R):
+            s = ((ns & low_mask) << k) | j
+            for i in range(k):
+                x, y = _branch_xy(bs[i], s)
+                sign[ns, j, 2 * i] = 1.0 - 2.0 * x
+                sign[ns, j, 2 * i + 1] = 1.0 - 2.0 * y
+                s = (bs[i] << 5) | (s >> 1)
+            assert s == ns
+    return sign, bits_hi
+
+
+@functools.lru_cache()
+def viterbi_tables_k3():
+    """What kernel C's plain version reads (viterbi_pallas._tables_k3
+    without its TPU expansion matrices; the CUDA kernel derives the same
+    signs from G1/G2): sign [64, 8, 6] float32 =
+    trellis_k(3)[0] and Bm [8, 64] float32, Bm[i, s] = bit i
+    (earliest first) of the 3 inputs that entered state s, i.e.
+    (s >> (3 + i)) & 1 (rows 3..7 zero)."""
+    sign, _ = trellis_k(3)
+    Bm = np.zeros((8, N_STATES), np.float32)
+    for s in range(N_STATES):
+        for i in range(3):
+            Bm[i, s] = (s >> (3 + i)) & 1
+    return sign, Bm
+
+
+# ---------------------------------------------------------------------------
 # one receiver geometry
 # ---------------------------------------------------------------------------
 
-def receiver_tables(cfg: modcod.ModcodConfig, n_symbols: int) -> dict:
-    """Every array the symbol program and the FEC of one geometry read:
-    `cfg` at `n_symbols` symbols (2*n_symbols samples) per carrier."""
-    L = cfg.plframe_len
+def dvbs_front_tables() -> dict:
+    """What the sample-domain front end reads (the matched filter, the
+    Oerder-Meyr interpolator and the Farrow resampler): the whole of
+    the DVB-S front end's tables, and the first entries of
+    receiver_tables."""
     rrc = rrc_taps()
     mid = mid_taps()
     coef, fmid, fhalf = farrow_coeffs()
-    pts, mask0 = demap_tables(cfg.constellation, cfg.g1, cfg.g2)
-    kt = kernel_tables(cfg.ldpc_table)
     return dict(
         rrc_taps=rrc,
         fir_rrc=fir_matrix(tuple(rrc.tolist()), FIR_BLK),
@@ -259,6 +332,17 @@ def receiver_tables(cfg: modcod.ModcodConfig, n_symbols: int) -> dict:
         fir_mid=fir_matrix(tuple(mid.tolist()), FIR_BLK),
         farrow_coef=coef,
         farrow_band=np.asarray([fmid, fhalf], np.float64),
+    )
+
+
+def receiver_tables(cfg: modcod.ModcodConfig, n_symbols: int) -> dict:
+    """Every array the symbol program and the FEC of one geometry read:
+    `cfg` at `n_symbols` symbols (2*n_symbols samples) per carrier."""
+    L = cfg.plframe_len
+    pts, mask0 = demap_tables(cfg.constellation, cfg.g1, cfg.g2)
+    kt = kernel_tables(cfg.ldpc_table)
+    return dict(
+        **dvbs_front_tables(),
         corr_T=template_matrix(corr_blk(n_symbols)),
         hdr_syms=header_syms(cfg.pls_code),
         descr=payload_descramble_phasors(L - 90),

@@ -11,21 +11,27 @@ Tolerances and why:
   arithmetic);
 - kernel B (resampler): max abs error <= 1e-5 (float32; the kernel
   rounds each multiply and add as the plain version does);
-- the small bank on the card against the same bank on the CPU: decoded
-  bytes, flags and frame starts exact, quality within 1e-3 (float32
-  sums in another order).
+- kernel C (Viterbi): bit-exact on every output bit (both sum the same
+  bf16-rounded terms in the same order and break ties alike);
+- the small DVB-S2 bank on the card against the same bank on the CPU:
+  decoded bytes, flags and frame starts exact, quality within 1e-3
+  (float32 sums in another order);
+- the small DVB-S bank step on the card against the same step on the
+  CPU: decoded bits and re-encode BER exact (a 12 dB signal decodes to
+  the bits sent on both), hints within 1e-3.
 """
 import numpy as np
 import pytest
 import torch
 
 from dvbs_tpu.spec import ldpc_spec, modcod
-from dvbs_tpu.tx import channel, dvbs2_mod
+from dvbs_tpu.tx import channel, dvbs2_mod, dvbs_mod
 from dvbs_tpu_torch import backend, tables
 from dvbs_tpu_torch.ops import ldpc_kernel
 from dvbs_tpu_torch.ops import resample_kernel as rk
+from dvbs_tpu_torch.ops import viterbi_kernel as vk
 from dvbs_tpu_torch.ops.frontend import pack_cs4
-from dvbs_tpu_torch.parallel import mesh
+from dvbs_tpu_torch.parallel import dvbs_bank, mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -132,9 +138,69 @@ def test_small_bank_on_card_matches_cpu(dev):
         backend.reset_launches()
         outs.append({k: v.cpu().numpy() for k, v in step(x.to(d)).items()})
         if d.type == "cuda":
-            assert all(n > 0 for n in backend.LAUNCHES.values())
+            assert backend.LAUNCHES["ldpc_layered"] > 0
+            assert backend.LAUNCHES["resample_farrow"] > 0
     cpu, gpu = outs
     assert cpu["ldpc_ok"].all()
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
+
+
+def _viterbi_case(name):
+    rng = np.random.default_rng({"noisy": 3, "ragged": 4, "erased": 0}[name])
+    if name == "erased":
+        return np.zeros((1, 704, 2), np.float32)
+    B, T = (256, 704) if name == "noisy" else (130, 151)
+    x = rng.normal(0, 1.5, (B, T, 2))
+    if name == "noisy":
+        x += 2.0 * (1 - 2 * rng.integers(0, 2, (B, T, 2)))
+    x[:, ::3, 1] = 0.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["noisy", "ragged", "erased"])
+def test_viterbi_kernel_matches_plain(dev, name):
+    x = torch.from_numpy(_viterbi_case(name)).to(dev)
+    backend.reset_launches()
+    got = vk.decode_segments(x)
+    assert backend.LAUNCHES["viterbi_acs"] == 1
+    ref = vk.decode_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    with pytest.raises(TypeError):
+        vk.decode_cuda(x.to(torch.float16))
+
+
+def test_dvbs_bank_step_on_card_matches_cpu(dev):
+    C, n = 2, 1 << 15
+    sigs = []
+    for seed, cfo in ((61, 0.011), (62, -0.017)):
+        ts = dvbs_mod.random_ts_groups(6, seed=seed)
+        tx = dvbs_mod.DVBSModulator(rate="1/2").ts_to_symbols(ts)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=12.0, cfo=cfo,
+                           delay_samples=0.3, sco_ppm=10.0, seed=seed + 1)
+        sigs.append(pack_cs4(y))
+    # two blocks on the CPU stream give locked, carried hints
+    st = dvbs_bank.DVBSBankStream(C, rate="1/2", block_samples=n,
+                                  ingest="cs4")
+    st.feed([s[:2 * n] for s in sigs])
+    assert st.locked.all()
+    lo = [2 * n - len(f) for f in st._fifos]
+    x = torch.from_numpy(np.stack([s[a:a + n] for s, a in zip(sigs, lo)]))
+    h = torch.from_numpy(st._hints.copy())
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        step, _, _ = dvbs_bank.build_dvbs_stream_bank(
+            C, rate="1/2", block_samples=n, ingest="cs4", device=d)
+        backend.reset_launches()
+        outs.append({k: v.cpu().numpy() for k, v in
+                     step(x.to(d), h.to(d)).items()})
+        if d.type == "cuda":
+            assert backend.LAUNCHES["viterbi_acs"] == 1
+            assert backend.LAUNCHES["resample_farrow"] == 1
+    cpu, gpu = outs
+    assert cpu["ber"].max() < 0.05
+    np.testing.assert_array_equal(gpu["bits"], cpu["bits"])
+    np.testing.assert_array_equal(gpu["ber"], cpu["ber"])
+    assert np.abs(gpu["hints"] - cpu["hints"]).max() <= 1e-3

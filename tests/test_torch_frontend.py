@@ -150,3 +150,22 @@ def test_recover_symbols_full(case):
     assert np.max(np.abs(tau_t.numpy() - np.asarray(tau_j))) <= 1e-3
     assert np.max(np.abs(end_t.numpy() - np.asarray(end_j))) <= 1e-3
     assert _rms_rel(z_t.numpy(), z_j) <= BF16_RMS_TOL
+
+
+def test_matched_filter_and_recover_symbols():
+    x = _bank(8192)
+    rrc = tables.rrc_taps()
+    T = tf.bf16_round(torch.from_numpy(tables.fir_matrix(tuple(rrc.tolist()))))
+    y = tf.matched_filter(torch.from_numpy(x), torch.from_numpy(rrc), T)
+    y_j = jax.vmap(jf.matched_filter)(jnp.asarray(x))
+    assert _rms_rel(y.numpy(), y_j) <= BF16_RMS_TOL
+    mid = tables.mid_taps()
+    Tm = tf.bf16_round(torch.from_numpy(tables.fir_matrix(tuple(mid.tolist()))))
+    coef, fmid, fhalf = tables.farrow_coeffs()
+    y2 = np.array(y_j)
+    z_t, tau_t = tf.recover_symbols(torch.from_numpy(y2), torch.from_numpy(mid),
+                                    Tm, torch.from_numpy(coef), (fmid, fhalf),
+                                    n_windows=16)
+    z_j, tau_j = jax.vmap(lambda v: jf.recover_symbols(v, 16))(jnp.asarray(y2))
+    assert np.max(np.abs(tau_t.numpy() - np.asarray(tau_j))) <= 1e-3
+    assert _rms_rel(z_t.numpy(), z_j) <= BF16_RMS_TOL

@@ -32,7 +32,9 @@ for name in names:
 import chip_smoke
 # what chip_smoke's phases import when they run
 import bench
-from dvbs_tpu.spec import ldpc_spec, modcod
+from dvbs_tpu.io import native
+from dvbs_tpu.spec import dvbs_fec, ldpc_spec, modcod
+from dvbs_tpu.tx import channel, dvbs_mod
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib"))
 assert "torch" in sys.modules
