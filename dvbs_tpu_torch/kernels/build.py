@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 All of `dvbs_tpu_torch/csrc/*.cu` compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
+plain C interface (no PyTorch headers, so a build takes seconds): one
+nvcc per source, all started together, then one link. The
 library lands in `build/kernels/` at the root of the checkout, named by
 a hash of the sources and flags, and is built at first use: a fresh
 checkout builds it on its first kernel call, and an edited source
@@ -22,7 +23,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; every pointer and the stream are void*
@@ -67,13 +68,24 @@ def load():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]],
-            capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        nvcc = _nvcc()
+        srcs = sorted(SRC_DIR.glob("*.cu"))
+        objs = [tmp.with_name(f"{tmp.stem}.{s.stem}.o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        build_log = "".join(p.communicate()[0] for p in procs)
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *[str(o) for o in objs]],
+                                  capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -4,9 +4,12 @@ carriers.
 PyTorch port of dvbs_tpu/models/dvbs2.py (DVBS2Receiver and the `_build`
 program): samples -> AGC -> coarse CFO mix -> RRC matched filter ->
 feed-forward timing recovery -> PL-frame sync -> block-common FED and
-L&R frequency -> header phase -> V&V phase track -> PLS detect -> soft
-demap -> deinterleave, for C carriers at once. The port covers the
-pilots-off QPSK branch; the other branches raise.
+L&R frequency -> header phase -> phase track -> PLS detect -> soft demap
+-> deinterleave, for C carriers at once. With pilots (any
+constellation) the phase track is the pilot-anchor track and the
+payload is the frame with its pilot blocks cut out; without pilots the
+port runs QPSK, whose 4th-power V&V track follows the header phase.
+Pilotless 8PSK, 16APSK and 32APSK (the decision-directed track) raise.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ from dvbs_tpu.spec import modcod
 from .. import tables
 from ..ops import demap, frontend, interleaver, plhdr, plphase, plsync
 
-_ROADMAP = ("not ported yet (ROADMAP queue 1): the port's receiver runs "
-            "the pilots-off QPSK branch only")
+_ROADMAP = ("pilotless {} (plphase.dd_phase_track) is not ported yet "
+            "(ROADMAP queue 1): the port's receiver runs every "
+            "constellation with pilots, and QPSK without")
 
 
 class SymbolProgram(nn.Module):
@@ -32,8 +36,8 @@ class SymbolProgram(nn.Module):
                  n_frames: int, edge_margin: int, device,
                  np_tables: dict | None = None):
         super().__init__()
-        if cfg.pilots or cfg.constellation != modcod.QPSK:
-            raise NotImplementedError(_ROADMAP)
+        if not cfg.pilots and cfg.constellation != modcod.QPSK:
+            raise NotImplementedError(_ROADMAP.format(cfg.constellation))
         self.cfg = cfg
         self.F = n_frames
         self.edge_margin = edge_margin
@@ -41,6 +45,8 @@ class SymbolProgram(nn.Module):
         np_tables = dict(np_tables)
         self.farrow_band = tuple(float(v)
                                  for v in np_tables.pop("farrow_band"))
+        # the pilot grid is static: slices and windows, not a gather
+        self.pstarts = [int(p) for p in np_tables.pop("pilot_starts", ())]
         for k, v in tables.to_torch(np_tables, device).items():
             if k in ("fir_rrc", "fir_mid"):
                 v = frontend.bf16_round(v)      # the bf16 matmul's operand
@@ -73,16 +79,23 @@ class SymbolProgram(nn.Module):
                 score, L, F, margin=self.edge_margin)
             frames = plsync.extract_frames(z, starts, L)     # [C, F, L]
         with record_function("phase"):
-            fed = plphase.coarse_fed_common(frames, self.hdr_syms)   # [C]
+            pilots = (self.pstarts, self.pilot_descr) if cfg.pilots else None
+            fed = plphase.coarse_fed_common(frames, self.hdr_syms, pilots)
             frames = plphase.apply_freq(frames, fed[:, None].expand(C, F))
-            flr = plphase.lr_freq_common(frames, self.hdr_syms)
+            flr = plphase.lr_freq_common(frames, self.hdr_syms, pilots)
             frames = plphase.apply_freq(frames, flr[:, None].expand(C, F))
             freq = (fed + flr)[:, None].expand(C, F)
             theta0 = plphase.header_phase(frames, self.hdr_syms)  # [C, F]
-            frames_c = plphase.derotate(frames, theta0[..., None])
-            payload = frames_c[..., 90:] * self.descr
-            vv = plphase.qpsk_vv_track(payload, torch.zeros_like(theta0))
-            payload = plphase.derotate(payload, vv)
+            if cfg.pilots:
+                frames_c = plphase.derotate(frames, plphase.pilot_anchor_phases(
+                    frames, theta0, pilots))
+                payload = plphase.extract_payload(
+                    frames_c, self.pstarts, L) * self.payload_descr
+            else:
+                frames_c = plphase.derotate(frames, theta0[..., None])
+                payload = frames_c[..., 90:] * self.descr
+                vv = plphase.qpsk_vv_track(payload, torch.zeros_like(theta0))
+                payload = plphase.derotate(payload, vv)
             header = frames_c[..., :90]
         with record_function("demap"):
             pls_idx, pls_conf = plhdr.detect_pls(header, self.pls_syms)

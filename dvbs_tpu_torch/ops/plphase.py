@@ -1,11 +1,19 @@
-"""Per-frame carrier recovery on the pilots-off QPSK path.
+"""Per-frame carrier recovery: block-common frequency, anchored phase.
 
-PyTorch port of the parts of dvbs_tpu/ops/plphase.py that the pilots-off
-QPSK receiver runs: the block-common lag-2 FED and Luise-Reggiannini
-frequency estimates over the known header symbols, the header LS phase,
-and the two-stage 4th-power Viterbi&Viterbi phase track. Frames carry
-leading batch dimensions [..., F, L]; the block-common estimates average
-over the frame axis (-2) only.
+PyTorch port of the parts of dvbs_tpu/ops/plphase.py that the receiver
+runs with pilots (every constellation) and without them (QPSK): the
+block-common lag-2 FED and Luise-Reggiannini frequency estimates over
+the known symbols (the header, and the descrambled pilot blocks when
+present), the header LS phase, the pilot-anchor phase track with its
+extrapolated tail, payload extraction, and the two-stage 4th-power
+Viterbi&Viterbi track of pilotless QPSK. Frames carry leading batch
+dimensions [..., F, L]; the block-common estimates average over the
+frame axis (-2) only.
+
+`pilots` arguments are None (no pilots) or (pstarts, pdescr): the pilot
+block starts (tables.pilot_starts, a uniform grid) and their descramble
+phasors times conj of the pilot symbol [n_p, 36]
+(tables.pilot_descramble_phasors).
 """
 from __future__ import annotations
 
@@ -22,26 +30,53 @@ def _known_header(frames: torch.Tensor, hdr: torch.Tensor) -> torch.Tensor:
     return frames[..., :90] * torch.conj(hdr)
 
 
-def coarse_fed_common(frames: torch.Tensor, hdr: torch.Tensor
-                      ) -> torch.Tensor:
+def _pilot_grid(pstarts) -> tuple[int, int]:
+    """(first start, spacing) of the uniform pilot grid."""
+    p0 = int(pstarts[0])
+    step = int(pstarts[1]) - p0 if len(pstarts) > 1 else 1476
+    assert all(int(p) == p0 + k * step for k, p in enumerate(pstarts)), \
+        "non-uniform pilots"
+    return p0, step
+
+
+def pilot_blocks(frames: torch.Tensor, pilots) -> torch.Tensor:
+    """Every pilot block of frames [..., L], descrambled and divided by
+    the pilot symbol, in one strided window: [..., n_p, 36]."""
+    pstarts, pdescr = pilots
+    p0, step = _pilot_grid(pstarts)
+    span = (len(pstarts) - 1) * step + 36
+    return frames[..., p0:p0 + span].unfold(-1, 36, step) * pdescr
+
+
+def _lag_sum(seg: torch.Tensor, m: int, dims) -> torch.Tensor:
+    return torch.sum(seg[..., m:] * torch.conj(seg[..., :-m]), dim=dims)
+
+
+def coarse_fed_common(frames: torch.Tensor, hdr: torch.Tensor,
+                      pilots=None) -> torch.Tensor:
     """Block-common lag-2 frequency estimate, rad/symbol, over the
-    header symbols (the JAX version with pilots=False, robust=False).
-    frames [..., F, L], hdr [90] the configured PLHEADER symbols
-    -> [...]."""
-    h = _known_header(frames, hdr)
-    acc_f = torch.sum(h[..., 2:] * torch.conj(h[..., :-2]), dim=-1)
+    header symbols and each pilot block as its own segment (the JAX
+    version with robust=False). frames [..., F, L], hdr [90] the
+    configured PLHEADER symbols -> [...]."""
+    acc_f = _lag_sum(_known_header(frames, hdr), 2, -1)
+    if pilots is not None:
+        acc_f = acc_f + _lag_sum(pilot_blocks(frames, pilots), 2, (-2, -1))
     return torch.angle(torch.sum(acc_f, dim=-1)) / 2.0
 
 
-def lr_freq_common(frames: torch.Tensor, hdr: torch.Tensor, M: int = 8
-                   ) -> torch.Tensor:
-    """Block-common Luise-Reggiannini estimate over the header symbols
-    of every frame (pilots=False, robust=False): angle(sum_m R_m) /
+def lr_freq_common(frames: torch.Tensor, hdr: torch.Tensor, pilots=None,
+                   M: int = 8) -> torch.Tensor:
+    """Block-common Luise-Reggiannini estimate over the known symbols of
+    every frame (robust=False): lags 1..M within the header and within
+    each pilot block, never across a block boundary; angle(sum_m R_m) /
     ((M+1)/2). -> [...]."""
     h = _known_header(frames, hdr)
+    blks = pilot_blocks(frames, pilots) if pilots is not None else None
     acc_f = torch.zeros(h.shape[:-1], dtype=torch.complex64, device=h.device)
     for m in range(1, M + 1):
-        acc_f = acc_f + torch.sum(h[..., m:] * torch.conj(h[..., :-m]), dim=-1)
+        acc_f = acc_f + _lag_sum(h, m, -1)
+        if blks is not None:
+            acc_f = acc_f + _lag_sum(blks, m, (-2, -1))
     return torch.angle(torch.sum(acc_f, dim=-1)) / ((M + 1) / 2.0)
 
 
@@ -115,3 +150,53 @@ def qpsk_vv_track(payload: torch.Tensor, theta0: torch.Tensor
     flat = payload * _polar1(-ramp)
     ph2, _ = _vv_group_phases(flat, torch.zeros_like(theta0), 720)
     return ramp + _interp_phases(ph2, 720, P)
+
+
+def extract_payload(frames: torch.Tensor, pstarts, L: int) -> torch.Tensor:
+    """Pilots-on payload [..., L] -> [..., P]: the stretches between the
+    header and the pilot blocks, as static slices and one concatenation."""
+    ps = [int(p) for p in pstarts]
+    ends = ps[1:] + [L]
+    return torch.cat([frames[..., 90:ps[0]]] +
+                     [frames[..., p + 36:e] for p, e in zip(ps, ends)], dim=-1)
+
+
+def pilot_anchor_phases(frames: torch.Tensor, theta0: torch.Tensor, pilots
+                        ) -> torch.Tensor:
+    """Piecewise-linear phase over the frame from the header anchor
+    (theta0 [...], at symbol 45) and one anchor per pilot block (at its
+    centre), unwrapped from the header by a prefix sum of wrapped steps.
+    After the last pilot the track goes on at the slope of the anchors
+    (from the first pilot to the last), not flat: the residual of the
+    block-common frequency would otherwise accrue over the unanchored
+    tail. frames [..., L] -> [..., L]."""
+    L = frames.shape[-1]
+    lead = frames.shape[:-1]
+    pstarts = pilots[0]
+    n_p = len(pstarts)
+    p0, step = _pilot_grid(pstarts)
+    raw = torch.angle(torch.sum(pilot_blocks(frames, pilots), dim=-1))
+    two_pi = 2 * math.pi
+    d = raw[..., 1:] - raw[..., :-1]
+    d = d - torch.round(d / two_pi) * two_pi
+    base = raw[..., :1] - torch.round((raw[..., :1] - theta0[..., None])
+                                      / two_pi) * two_pi
+    vals = torch.cat([theta0[..., None], base + torch.cat(
+        [torch.zeros_like(base), torch.cumsum(d, dim=-1)], dim=-1)], dim=-1)
+    # anchors: 45 (header), then p0+18 + k*step; built per region
+    a1 = p0 + 18
+    dev = frames.device
+    t_head = torch.arange(a1, dtype=torch.float32, device=dev)
+    w = torch.clamp((t_head - 45.0) / (a1 - 45.0), 0.0, 1.0)
+    head = vals[..., :1] + (vals[..., 1:2] - vals[..., :1]) * w
+    dmid = vals[..., 2:] - vals[..., 1:-1]
+    frac = torch.arange(step, dtype=torch.float32, device=dev) / step
+    mid = (vals[..., 1:-1, None] + dmid[..., None] * frac).reshape(*lead, -1)
+    tail_len = L - a1 - (n_p - 1) * step
+    if n_p > 1:
+        slope = (vals[..., -1:] - vals[..., 1:2]) / ((n_p - 1) * step)
+    else:
+        slope = (vals[..., 1:2] - vals[..., :1]) / float(a1 - 45)
+    t_tail = torch.arange(tail_len, dtype=torch.float32, device=dev)
+    tail = vals[..., -1:] + slope * t_tail
+    return torch.cat([head, mid, tail], dim=-1)

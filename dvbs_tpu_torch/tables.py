@@ -159,6 +159,25 @@ def payload_indices(cfg: modcod.ModcodConfig) -> np.ndarray:
     return (np.nonzero(~is_pilot)[0] + 90).astype(np.int32)
 
 
+def pilot_starts(cfg: modcod.ModcodConfig) -> np.ndarray:
+    """Frame-relative start of each 36-symbol pilot block, int32, empty
+    without pilots (plphase.pilot_starts)."""
+    return dvbs2_mod.pilot_symbol_positions(cfg).astype(np.int32)
+
+
+PILOT_SYMBOL = (1 + 1j) / np.sqrt(2)     # every pilot symbol, before PL scrambling
+
+
+def pilot_descramble_phasors(cfg: modcod.ModcodConfig) -> np.ndarray:
+    """[n_p, 36] complex64: the PL descramble phasors of each pilot block
+    times conj(PILOT_SYMBOL), so that a received pilot block times this
+    is the carrier phasor alone (plphase.pilot_anchor_phases' dphs and
+    the pilot segments of coarse_fed_common and lr_freq_common)."""
+    descr = payload_descramble_phasors(cfg.plframe_len - 90)
+    return (np.stack([descr[p - 90:p - 90 + 36] for p in pilot_starts(cfg)])
+            * np.conj(PILOT_SYMBOL)).astype(np.complex64)
+
+
 # ---------------------------------------------------------------------------
 # demap, BCH, LDPC (demap.py, bch.py, ldpc_qc.py, ldpc_pallas.py)
 # ---------------------------------------------------------------------------
@@ -337,11 +356,22 @@ def dvbs_front_tables() -> dict:
 
 def receiver_tables(cfg: modcod.ModcodConfig, n_symbols: int) -> dict:
     """Every array the symbol program and the FEC of one geometry read:
-    `cfg` at `n_symbols` symbols (2*n_symbols samples) per carrier."""
+    `cfg` at `n_symbols` symbols (2*n_symbols samples) per carrier. With
+    pilots it adds pilot_starts [n_p], pilot_descr [n_p, 36] and
+    payload_descr, the descramble phasors of the payload symbols alone
+    (models/dvbs2.py's descr[payload_idx - 90])."""
     L = cfg.plframe_len
     pts, mask0 = demap_tables(cfg.constellation, cfg.g1, cfg.g2)
     kt = kernel_tables(cfg.ldpc_table)
+    pilots = {}
+    if cfg.pilots:
+        pilots = dict(
+            pilot_starts=pilot_starts(cfg),
+            pilot_descr=pilot_descramble_phasors(cfg),
+            payload_descr=payload_descramble_phasors(L - 90)[
+                payload_indices(cfg) - 90])
     return dict(
+        **pilots,
         **dvbs_front_tables(),
         corr_T=template_matrix(corr_blk(n_symbols)),
         hdr_syms=header_syms(cfg.pls_code),

@@ -94,6 +94,9 @@ def test_fec_names():
         mesh.build_carrier_bank(C, fec="pallas", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mesh.build_carrier_bank(C, mc=13, short=True, block_symbols=BLOCK)
+    step, _ = mesh.build_carrier_bank(C, mc=13, short=True, pilots=True,
+                                      block_symbols=BLOCK)
+    assert step.rx.cfg.pilots and step.rx.cfg.constellation == modcod.PSK8
 
 
 def _stream(st, sigs, lo, hi, outs):

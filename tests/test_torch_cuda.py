@@ -13,9 +13,9 @@ Tolerances and why:
   rounds each multiply and add as the plain version does);
 - kernel C (Viterbi): bit-exact on every output bit (both sum the same
   bf16-rounded terms in the same order and break ties alike);
-- the small DVB-S2 bank on the card against the same bank on the CPU:
-  decoded bytes, flags and frame starts exact, quality within 1e-3
-  (float32 sums in another order);
+- the small DVB-S2 banks (QPSK without pilots, 8PSK with pilots) on the
+  card against the same bank on the CPU: decoded bytes, flags and PLS
+  exact, quality within 1e-3 (float32 sums in another order);
 - the small DVB-S bank step on the card against the same step on the
   CPU: decoded bits and re-encode BER exact (a 12 dB signal decodes to
   the bits sent on both), hints within 1e-3.
@@ -108,6 +108,32 @@ def test_ldpc_kernel_b4_one_sweep(dev):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("table,rate,ebno", [("B7", 3 / 4, 3.0),
+                                             ("B6", 2 / 3, 2.6)])
+def test_ldpc_kernel_pilots_tables(dev, table, rate, ebno):
+    """The pilots banks' tables (8PSK and 32APSK 3/4: B7, Dmax 14;
+    16APSK 2/3: B6, Dmax 10) at [128, 64800]: one sweep on random int8,
+    and 12 sweeps with early exit on codewords near the threshold."""
+    kt = tables.kernel_tables(table)
+    code = ldpc_spec.get_code(table)
+    rng = np.random.default_rng(7)
+    rand = rng.integers(-25, 26, (128, kt["N"])).astype(np.int8)
+    cw = code.encode(rng.integers(0, 2, (128, code.K)).astype(np.uint8))
+    sigma = np.sqrt(1.0 / (2 * rate * 10 ** (ebno / 10)))
+    y = 1.0 - 2.0 * cw.astype(np.float32) + \
+        rng.normal(0, sigma, cw.shape).astype(np.float32)
+    noisy = ldpc_kernel.quantize_llrs(torch.from_numpy(2.0 * y / sigma ** 2))
+    for x, n_iters, ee in ((torch.from_numpy(rand), 1, False),
+                           (noisy, 12, True)):
+        x = x.to(dev)
+        got = ldpc_kernel.decode_cuda(x, kt, n_iters, early_exit=ee)
+        ref = ldpc_kernel.decode_plain(x, kt, n_iters, early_exit=ee)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    assert int(got[2].max()) > 1 and bool((got[1] == 0).all())
+    assert (got[0].cpu().numpy() == cw).all()
+
+
 def test_dispatch_counts_launches_and_checks_inputs(dev, c4_llrs):
     backend.reset_launches()
     ldpc_kernel.decode(c4_llrs[:4].to(dev), "C4", n_iters=3,
@@ -140,6 +166,34 @@ def test_small_bank_on_card_matches_cpu(dev):
         if d.type == "cuda":
             assert backend.LAUNCHES["ldpc_layered"] > 0
             assert backend.LAUNCHES["resample_farrow"] > 0
+    cpu, gpu = outs
+    assert cpu["ldpc_ok"].all()
+    for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
+
+
+def test_small_pilots_bank_on_card_matches_cpu(dev):
+    """8PSK 2/3 short frames with pilots, two carriers at 10 dB: the
+    pilot-anchor track and the 8PSK demap on the card."""
+    cfg = modcod.get_config(13, short=True, pilots=True)
+    block = mesh.bank_block_symbols(2, mc=13, short=True, pilots=True,
+                                    frames_total=4)
+    sigs = []
+    for seed, cfo in ((21, 0.006 * np.pi), (34, -0.011 * np.pi)):
+        pkts = dvbs2_mod.random_ts_packets(60, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=10.0, cfo=cfo,
+                           delay_samples=0.3, sco_ppm=10.0, seed=seed + 1)
+        sigs.append(pack_cs4(y[:2 * block]))
+    x = torch.from_numpy(np.stack(sigs))
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        step, _ = mesh.build_carrier_bank(2, mc=13, short=True, pilots=True,
+                                          block_symbols=block, ingest="cs4",
+                                          device=d)
+        outs.append({k: v.cpu().numpy() for k, v in step(x.to(d)).items()})
     cpu, gpu = outs
     assert cpu["ldpc_ok"].all()
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):

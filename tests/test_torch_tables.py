@@ -35,6 +35,7 @@ def jax_receiver_tables(cfg, n_symbols: int) -> dict:
     pts, mask0 = jdemap._tables(cfg.constellation, cfg.g1, cfg.g2)
     kt = ldpc_pallas.kernel_tables(cfg.ldpc_table)
     return dict(
+        **(jax_pilot_tables(cfg) if cfg.pilots else {}),
         rrc_taps=rrc,
         fir_rrc=jfrontend._fir_matrix(tuple(rrc.tolist()), jfrontend._FIR_BLK),
         mid_taps=mid,
@@ -51,6 +52,21 @@ def jax_receiver_tables(cfg, n_symbols: int) -> dict:
         ldpc_g=kt["g_tab"], ldpc_s=kt["s_tab"], ldpc_f=kt["f_tab"],
         bb_mask=scrambling.bb_scrambler_byte_mask(cfg.kbch // 8),
     )
+
+
+def jax_pilot_tables(cfg) -> dict:
+    """The pilot constants of tables.receiver_tables, from dvbs_tpu's
+    plphase (its pilot_anchor_phases' dphs times conj of the pilot, and
+    models/dvbs2.py's descr[payload_idx - 90])."""
+    L = cfg.plframe_len
+    descr = jplphase._payload_descramble_phasors(L - 90)
+    ps = jplphase.pilot_starts(cfg)
+    dphs = np.stack([descr[p - 90:p - 90 + 36] for p in ps])
+    return dict(
+        pilot_starts=ps,
+        pilot_descr=(dphs * np.conj((1 + 1j) / np.sqrt(2))
+                     ).astype(np.complex64),
+        payload_descr=descr[jplphase.payload_indices(cfg) - 90])
 
 
 def _assert_same(a, b):
@@ -73,15 +89,19 @@ def test_ldpc_tables_equal(table):
         _assert_same(jk[k], tk[k])
 
 
-@pytest.mark.parametrize("mc,short,n_symbols", [
-    (4, False, 552960),          # the bank's headline geometry
-    (4, True, 25344),            # short-frame test geometry
-    (13, True, 30000),           # 8PSK 2/3: other demap / BCH tables
-    (18, False, 140000),         # 16APSK 2/3: 4 bits per symbol
-    (26, True, 40000),           # 32APSK 5/6
+@pytest.mark.parametrize("mc,short,n_symbols,pilots", [
+    (4, False, 552960, False),   # the bank's headline geometry
+    (4, True, 25344, False),     # short-frame test geometry
+    (13, True, 30000, False),    # 8PSK 2/3: other demap / BCH tables
+    (18, False, 140000, False),  # 16APSK 2/3: 4 bits per symbol
+    (26, True, 40000, False),    # 32APSK 5/6
+    (14, False, 377920, True),   # the pilots banks: 8PSK 3/4 (B7),
+    (18, False, 284288, True),   # 16APSK 2/3 (B6),
+    (24, False, 227392, True),   # 32APSK 3/4 (B7)
+    (4, True, 25344, True),      # short QPSK with pilots
 ])
-def test_receiver_tables_equal(mc, short, n_symbols):
-    cfg = modcod.get_config(mc, short=short)
+def test_receiver_tables_equal(mc, short, n_symbols, pilots):
+    cfg = modcod.get_config(mc, short=short, pilots=pilots)
     jt = jax_receiver_tables(cfg, n_symbols)
     tt = tables.receiver_tables(cfg, n_symbols)
     assert set(jt) == set(tt)
@@ -107,6 +127,28 @@ def test_shift_bits_equal(n):
 def test_payload_indices_equal(mc, short, pilots):
     cfg = modcod.get_config(mc, short=short, pilots=pilots)
     _assert_same(jplphase.payload_indices(cfg), tables.payload_indices(cfg))
+
+
+@pytest.mark.parametrize("mc,short", [(4, False), (14, False), (18, False),
+                                      (24, False), (13, True), (24, True)])
+def test_pilot_constants_equal(mc, short):
+    cfg = modcod.get_config(mc, short=short, pilots=True)
+    ps = tables.pilot_starts(cfg)
+    _assert_same(ps, jplphase.pilot_starts(cfg))
+    assert len(ps) == cfg.pilot_blocks
+    descr = jplphase._payload_descramble_phasors(cfg.plframe_len - 90)
+    pd = tables.pilot_descramble_phasors(cfg)
+    assert pd.shape == (len(ps), 36) and pd.dtype == np.complex64
+    for k, p in enumerate(ps):
+        # a descrambled pilot block divided by the pilot symbol is 1
+        pilot = (1 + 1j) / np.sqrt(2) * np.conj(descr[p - 90:p - 90 + 36])
+        np.testing.assert_allclose(pilot * pd[k], 1.0, atol=1e-6)
+    rt = tables.receiver_tables(cfg, 30000)
+    _assert_same(rt["payload_descr"],
+                 descr[jplphase.payload_indices(cfg) - 90])
+    assert rt["payload_descr"].shape == (cfg.payload_len,)
+    assert "pilot_starts" not in tables.receiver_tables(
+        modcod.get_config(mc, short=short), 30000)
 
 
 def test_to_torch_types():
