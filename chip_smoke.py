@@ -6,61 +6,85 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: name and power limit (nvidia-smi), TF32 off;
-2. every phase's signals, made at once in worker processes (one per
-   CPU core, up to 8) while the CUDA kernels build from
-   dvbs_tpu_torch/csrc (one nvcc per source, cached in build/kernels/
-   by a hash of the sources);
+2. every phase's signals (dvbs_tpu_torch/tx/signals.py: the seeds and
+   parameters of the JAX package's bench.py), made in worker processes
+   (one per CPU core but one, up to 8) while this process builds the
+   CUDA kernels from dvbs_tpu_torch/csrc (one nvcc per source, cached
+   in build/kernels/ by a hash of the sources) and runs phases 3 to 6,
+   which need none of the signals;
 3. kernel A (int8 layered LDPC) against its plain PyTorch version at
-   [128, 64800] on the LDPC tables B4, B7 and B6: one fixed sweep on
+   [128, 64800] on the LDPC tables B4, B7 and B6 (one fixed sweep on
    random int8 LLRs, and 12 sweeps with early exit on noisy codewords
-   near each code's threshold. hard, n_bad and trials must be equal;
+   near each code's threshold), and at the single-carrier receiver's
+   batches: F = 3 and 8 frames on B4, 3, 5 and 8 on B7 and 7 on B6.
+   hard, n_bad and trials must be equal;
 4. kernel B (barrel+Farrow resampler) against its plain version at
    C=8 and each bank's symbols per block (552960 for QPSK 1/2; 377920,
-   284288 and 227392 for the pilots banks; 262144 for DVB-S) with
-   drifting positions of both signs: max abs error <= 1e-5;
+   284288 and 227392 for the pilots banks; 262144 for DVB-S) and at
+   [1, 131072], the single-carrier block, with drifting positions of
+   both signs: max abs error <= 1e-5;
 5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
    bit for bit on every output bit: noisy codewords at the DVB-S bank's
    shape [4096, 704, 2] with every third Y erased (whose segment cores
    must also equal the bits sent), a ragged [130, 151, 2], and one
    all-erasure segment;
-6. the DVB-S2 main path: DVBS2BankStream with 8 carriers of DVB-S2 QPSK
-   1/2 normal frames, cs4 ingest, fed bench.py's headline signals for
-   >= 4 blocks plus flush. Every carrier's TS must be one byte-exact
-   contiguous run of its own packets, every frame must decode, and
-   kernels A and B must have been launched. Then the device-resident
-   bank step is timed with CUDA events;
-7. the DVB-S main path: DVBSBankStream with 8 carriers of DVB-S rate
-   1/2, cs4 ingest, 2^19 samples per block, fed bench.py's DVB-S
-   signals for 6 blocks' worth. Every carrier must stay locked with a
-   re-encode BER < 0.05, its TS must be one byte-exact contiguous run
-   of >= 100 of its own packets, and kernels B and C must have been
-   launched. The host tail's (native or python) time over the streamed
-   run is reported, and the device-resident step is timed with CUDA
+6. every stage of the resampler probe (csrc/resample_probe.cu: v0..v8,
+   dma, rows, rb, barrel, swap, full, split) against its plain version
+   at the TPU probes' shape and at the bank's, max abs error 0; then
+   the probe's entry point (kernels/probe_resample.main), which prints
+   each stage's time;
+7. the DVB-S2 bank path: DVBS2BankStream with 8 carriers of DVB-S2 QPSK
+   1/2 normal frames, cs4 ingest, >= 4 blocks plus flush. Every
+   carrier's TS must be one byte-exact contiguous run of its own
+   packets, every frame must decode, and kernels A and B must have been
+   launched. Then the device-resident bank step is timed with CUDA
    events;
-8. the pilots banks of bench.py (bench_hiord_bank): 8 carriers of 8PSK
-   3/4, 16APSK 2/3 and 32APSK 3/4 normal frames with pilots, cs4, 128
-   frames per block. For each, one bank step must decode all 128
-   frames with no BCH flag, every carrier's TS (NativeTSParser) must be
-   one byte-exact contiguous run, and kernels A and B must have been
-   launched; the step is timed with CUDA events. 8PSK 3/4 is also
-   streamed through DVBS2BankStream for >= 2 blocks plus flush with
-   every frame decoded and every carrier's TS contiguous.
+8. the DVB-S bank path: DVBSBankStream with 8 carriers of DVB-S rate
+   1/2, cs4 ingest, 2^19 samples per block, 6 blocks' worth. Every
+   carrier must stay locked with a re-encode BER < 0.05, its TS must be
+   one byte-exact contiguous run of >= 100 of its own packets, and
+   kernels B and C must have been launched;
+9. the pilots banks: 8 carriers of 8PSK 3/4, 16APSK 2/3 and 32APSK 3/4
+   normal frames with pilots, cs4, 128 frames per block: one bank step
+   each decodes all 128 frames with no BCH flag and contiguous TS;
+   8PSK 3/4 is also streamed for >= 2 blocks plus flush;
+10. the single-carrier slice, at block_symbols 2^17 and >= 6 blocks:
+   the port's cli.main run in-process on cf32 files in a temporary
+   directory, default device, `--fec pallas`, for QPSK 1/2, 8PSK 3/4
+   and 16APSK 2/3 without pilots and 32APSK 3/4 with pilots; QPSK 1/2
+   again with `--fec xla`; QPSK 1/2 in two runs joined by a
+   `--state-file`; and 8PSK 3/4 with a dummy PLFRAME after every third
+   data frame through DVBS2Stream(dummy_aware=True). Every output must
+   be one byte-exact contiguous run of the packets sent, every frame
+   after the first block must decode (dummy slots skipped without a
+   gap), and kernels A and B must have been launched (B alone with
+   `--fec xla`). For each configuration one block is then timed: ms per
+   block, launches of kernels A and B per block, and dd_phase_track's
+   share.
 
 With --profile TRACE.json, a torch.profiler breakdown of the QPSK,
-DVB-S and 32APSK bank steps by layer and kernel follows their phases;
-the Chrome traces go to TRACE.json, TRACE_dvbs.json and
-TRACE_32apsk.json.
+DVB-S and 32APSK bank steps by layer and kernel follows their phases,
+and each single-carrier block gains its count of CUDA kernels, their
+device time and a per-layer breakdown; the Chrome traces go to
+TRACE.json, TRACE_dvbs.json, TRACE_32apsk.json and TRACE_<name>.json.
 
 Prints the kernels' JSON line (launches: the sum over the main paths'
-runs, each run with the counts set to 0 just before it), then as its
-last line {"ok": true, "device": {...}}. Needs one CUDA device.
+runs, each run with the counts set to 0 just before it; bound_ms: the
+larger of the bytes each kernel must move over 3.35 TB/s and its
+operations over the card's rate for their type, from this run's inputs),
+then as its last line {"ok": true, "device": {...}}. Needs one CUDA
+device.
 """
 import argparse
+import contextlib
+import io
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -70,17 +94,55 @@ N_CARRIERS = 8
 MC, SHORT = 4, False            # QPSK 1/2, normal frames (LDPC table B4)
 E2E_BLOCKS = 4
 RESAMPLE_TOL = 1e-5
-DVBS_BLOCK = 2 * (1 << 18)      # bench.py's DVB-S block, samples per carrier
+DVBS_BLOCK = 2 * (1 << 18)      # the DVB-S bank's block, samples per carrier
 DVBS_BLOCKS = 5                 # streamed: (DVBS_BLOCKS + 1) blocks' worth
 # kernel A's noisy checks: (table, code rate, Eb/N0 dB near the int8
 # decoder's threshold, where the trials spread over sweeps 7..10)
 LDPC_CASES = (("B4", 1 / 2, 2.5), ("B7", 3 / 4, 3.0), ("B6", 2 / 3, 2.6))
-# bench.py's pilots banks (bench_hiord_bank): MODCOD, SNR dB, label
+# kernel A's small batches, (table, frames per call): what the
+# single-carrier receiver gives it at 2^17 symbols a block (3 frames of
+# QPSK 1/2 on B4, 5 of 8PSK 3/4 and 8 of 32APSK 3/4 on B7, 7 of 16APSK
+# 2/3 on B6), and 3 and 8 on both B4 and B7
+SMALL_BATCHES = (("B4", (3, 8)), ("B7", (3, 5, 8)), ("B6", (7,)))
+# integer operations per edge and sweep of the layered decoder: pass 1
+# subtracts the message, takes sign and magnitude, masks, compares and
+# updates two minima and their index, and two parities (~11); pass 2
+# selects the minimum, offsets, clamps, signs, damps a sign flip, takes
+# the delta and adds it to the posterior with saturation (~9)
+LDPC_OPS_PER_EDGE = 20
+# float operations per trellis step of the radix-8 Viterbi kernel: per
+# 3 steps, 64 states x 8 predecessors x (add, compare, select) plus 64
+# fused branch metrics of 5 adds
+VITERBI_OPS_PER_STEP = (64 * 8 * 3 + 64 * 5) / 3
+# the pilots banks: MODCOD, SNR dB, label
 PILOTS_BANKS = ((14, 9.5, "8psk34"), (18, 11.0, "16apsk23"),
                 (24, 14.5, "32apsk34"))
-PILOTS_PKTS = 700               # bench_hiord_bank's packets per carrier
+PILOTS_PKTS = 700               # packets per carrier of a pilots bank
 STREAM_MC = 14                  # the pilots bank also streamed
 STREAM_BLOCKS = 2               # streamed: >= 2 blocks plus flush
+# the single-carrier slice: name -> MODCOD, pilots, SNR dB (those at which
+# the JAX package's tests and bench decode these MODCODs), dummy PLFRAMEs
+# (one after every n-th data frame) or None
+SLICE_BLOCK = 1 << 17           # the CLI's default block, symbols
+SLICE_BLOCKS = 6
+SLICE = {"qpsk12": (4, False, 5.0, None), "8psk34": (14, False, 11.0, None),
+         "16apsk23": (18, False, 14.0, None),
+         "32apsk34p": (24, True, 14.5, None),
+         "8psk34_dummies": (14, False, 11.0, 3)}
+
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores, and integer ALU operations/s (Hopper has
+# half as many INT32 as FP32 lanes, and the 67 TFLOP/s count an FMA as
+# two: 67e12 / 2 / 2)
+HBM_BPS, F32_OPS, I32_OPS = 3.35e12, 67e12, 16.75e12
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    against operations over their peak rate, the larger, in ms."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -96,6 +158,19 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_once(fn):
+    """(fn(), its ms by CUDA events): one call, nothing run before it."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def phase_card(torch):
@@ -128,33 +203,53 @@ def phase_build():
 
 def s2_carrier(mc: int, pilots: bool, n_pkts: int, seed: int, cfo: float,
                delay: float, snr_db: float):
-    """One carrier of bench.s2_carrier_signal, cs4-packed, and its TS
+    """One carrier of signals.s2_carrier_signal, cs4-packed, and its TS
     packets."""
-    import bench
-    from dvbs_tpu.spec import modcod
+    from dvbs_tpu_torch.spec import modcod
     from dvbs_tpu_torch.ops.frontend import pack_cs4
+    from dvbs_tpu_torch.tx import signals
     cfg = modcod.get_config(mc, short=False, pilots=pilots)
-    y, sent = bench.s2_carrier_signal(cfg, n_pkts, seed, cfo, delay,
-                                      snr_db=snr_db)
+    y, sent = signals.s2_carrier_signal(cfg, n_pkts, seed, cfo, delay,
+                                        snr_db=snr_db)
     return pack_cs4(y), sent
 
 
 def dvbs_carrier(c: int):
-    """One of bench.py's DVB-S signals (bench_dvbs): a seam-free rate-1/2
-    stream at 8 dB, cs4-packed, and its TS packets."""
-    from dvbs_tpu.tx import channel, dvbs_mod
+    """One of the DVB-S bank's signals: a seam-free rate-1/2 stream at
+    8 dB, cs4-packed, and its TS packets."""
     from dvbs_tpu_torch.ops.frontend import pack_cs4
-    need = (DVBS_BLOCKS + 1) * DVBS_BLOCK
-    # 16 samples per framed byte; a group is 8 x 204 framed bytes
-    n_groups = -(-need // (16 * 1632)) + 2
-    ts = dvbs_mod.random_ts_groups(n_groups, seed=40 + c)
-    tx = dvbs_mod.DVBSModulator(rate="1/2").ts_to_symbols(ts)
-    y = channel.impair(channel.shape(tx, sps=2), snr_db=8.0,
-                       cfo=(0.004 + 0.002 * c) * np.pi,
-                       delay_samples=0.2 + 0.1 * c, sco_ppm=10.0,
-                       seed=50 + c)
-    assert len(y) >= need, (len(y), need)
-    return pack_cs4(y[:need]), ts.reshape(-1, 188)
+    from dvbs_tpu_torch.tx import signals
+    y, sent = signals.dvbs_carrier_signal(c, (DVBS_BLOCKS + 1) * DVBS_BLOCK)
+    return pack_cs4(y), sent
+
+
+def slice_frames(cfg) -> int:
+    """Frames per block of the single-carrier receiver at SLICE_BLOCK."""
+    return (SLICE_BLOCK - 2 * 256 - 90) // cfg.plframe_len - 1
+
+
+def slice_signal(name: str):
+    """The single-carrier signal of SLICE[name]: complex64 samples for
+    the first block and SLICE_BLOCKS more, and the packets sent. Normal
+    frames, CFO 0.008 pi, delay 0.2 samples, 10 ppm clock offset."""
+    from dvbs_tpu_torch.spec import modcod
+    from dvbs_tpu_torch.tx import channel, dvbs2_mod
+    mc, pilots, snr_db, dummy_every = SLICE[name]
+    cfg = modcod.get_config(mc, short=False, pilots=pilots)
+    L = cfg.plframe_len
+    need = 2 * SLICE_BLOCK + SLICE_BLOCKS * 2 * slice_frames(cfg) * L + 2 * L
+    n_frames = need // (2 * L) + 3
+    n_pkts = int(n_frames * (cfg.kbch - 80) / 8 / 188) + 1
+    pkts = dvbs2_mod.random_ts_packets(n_pkts, seed=70 + mc)
+    frames = dvbs2_mod.bbframes_to_plframes(
+        dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg)
+    tx = frames.reshape(-1) if dummy_every is None else \
+        dvbs2_mod.interleave_dummies(frames, every=dummy_every)
+    y = channel.impair(channel.shape(tx, sps=2), snr_db=snr_db,
+                       cfo=0.008 * np.pi, delay_samples=0.2, sco_ppm=10.0,
+                       seed=71 + mc)
+    assert len(y) >= need, (name, len(y), need)
+    return y.astype(np.complex64), pkts.reshape(-1, 188)
 
 
 def stream_need(cfg, block: int, F: int, blocks: int) -> int:
@@ -166,7 +261,7 @@ def stream_need(cfg, block: int, F: int, blocks: int) -> int:
 
 def stream_pkts(mc: int) -> int:
     """Packets per carrier that cover the streamed pilots run."""
-    from dvbs_tpu.spec import modcod
+    from dvbs_tpu_torch.spec import modcod
     from dvbs_tpu_torch.parallel.mesh import bank_block_symbols
     cfg = modcod.get_config(mc, short=False, pilots=True)
     block = bank_block_symbols(N_CARRIERS, mc=mc, pilots=True)
@@ -188,30 +283,31 @@ def start_signals(pool) -> dict:
                                 (0.006 + 0.002 * c) * np.pi, 0.25 + 0.1 * c,
                                 snr) for c in cs]
     jobs["dvbs"] = [pool.submit(dvbs_carrier, c) for c in cs]
+    for name in SLICE:
+        jobs[name] = [pool.submit(slice_signal, name)]
     return jobs
 
 
-def phase_signals_and_build() -> dict:
-    """Every phase's signals, made in worker processes while the kernels
-    build: {phase: ([cs4 per carrier], [packets per carrier])}."""
-    t0 = time.perf_counter()
-    workers = min(8, len(os.sched_getaffinity(0)))
-    with ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        jobs = start_signals(pool)
-        phase_build()
-        sigs = {k: [f.result() for f in v] for k, v in jobs.items()}
+def collect_signals(jobs: dict, t0: float, workers: int) -> dict:
+    """Wait for every phase's signals: {phase: ([cs4 per carrier],
+    [packets per carrier])}, or (samples, packets) for a slice signal."""
+    sigs = {k: [f.result() for f in v] for k, v in jobs.items()}
     out = {}
     for k, v in sigs.items():
+        if k in SLICE:                  # one carrier: (samples, packets)
+            out[k] = v[0]
+            continue
         cs4 = [s for s, _ in v]
-        if k != "dvbs":                 # equal lengths, as bench.py cuts them
+        if k != "dvbs":                 # equal lengths
             n = min(len(s) for s in cs4)
             cs4 = [s[:n] for s in cs4]
         out[k] = (cs4, [p for _, p in v])
-    print(f"signals: {sum(len(v[0]) for v in out.values())} carriers in "
-          f"{workers} worker processes ({time.perf_counter() - t0:.1f} s, "
-          f"the build included): " + ", ".join(
-              f"{k} {len(v[0][0])} cs4 samples" for k, v in out.items()))
+    print(f"signals: {sum(len(v) for v in sigs.values())} carriers in "
+          f"{workers} worker processes ({time.perf_counter() - t0:.1f} s "
+          f"since they were started, the build and the kernels' checks "
+          f"included): " + ", ".join(
+              f"{k} {len(v[0] if k in SLICE else v[0][0])} samples"
+              for k, v in out.items()))
     return out
 
 
@@ -222,7 +318,7 @@ def phase_signals_and_build() -> dict:
 def phase_ldpc(torch, dev):
     """Kernel A against its plain version on each table of LDPC_CASES.
     The kernels row reports B4's noisy case (the headline bank's)."""
-    from dvbs_tpu.spec import ldpc_spec
+    from dvbs_tpu_torch.spec import ldpc_spec
     from dvbs_tpu_torch import tables
     from dvbs_tpu_torch.ops import ldpc_kernel
     row, errs = None, []
@@ -243,8 +339,9 @@ def phase_ldpc(torch, dev):
                 ("random, 1 sweep", rand, 1, False),
                 (f"Eb/N0 {ebno} dB, 12 sweeps, early exit", noisy, 12, True)):
             got = ldpc_kernel.decode_cuda(llr, kt, n_iters, early_exit=ee)
-            ref = ldpc_kernel.decode_plain(llr, kt, n_iters, early_exit=ee)
-            torch.cuda.synchronize()
+            # the plain version runs once: the reference and its time
+            ref, plain_ms = cuda_once(lambda: ldpc_kernel.decode_plain(
+                llr, kt, n_iters, early_exit=ee))
             for name, a, b in zip(("hard", "n_bad", "trials"), got, ref):
                 if not torch.equal(a, b):
                     raise AssertionError(
@@ -252,8 +349,6 @@ def phase_ldpc(torch, dev):
                         f"the plain version in {int((a != b).sum())} places")
             ms = cuda_ms(lambda: ldpc_kernel.decode_cuda(
                 llr, kt, n_iters, early_exit=ee), 10)
-            plain_ms = cuda_ms(lambda: ldpc_kernel.decode_plain(
-                llr, kt, n_iters, early_exit=ee), 1)
             err = max(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
                       for a, b in zip(got, ref))
             tr = got[2].cpu().numpy()
@@ -268,10 +363,48 @@ def phase_ldpc(torch, dev):
                   f"{plain_ms:.1f} ms")
             errs.append(err)
             if ee and row is None:
+                # bytes: int8 LLRs in, hard bits out, two int32 per
+                # frame. Operations: the sweeps this batch ran (every
+                # frame is swept until the last one is clean) x edges x
+                # LDPC_OPS_PER_EDGE integer operations
+                edges = int((kt["f_tab"] & tables.F_VALID).sum()) * 360
+                ops = B * edges * int(tr.max()) * LDPC_OPS_PER_EDGE
                 row = dict(name="ldpc_layered", route="cuda",
                            source="dvbs_tpu_torch/csrc/ldpc_layered.cu",
                            replaces="dvbs_tpu/ops/ldpc_pallas.py:478",
-                           ms=ms, plain_ms=plain_ms)
+                           ms=ms, plain_ms=plain_ms, library_ms=None,
+                           **bound(2 * B * N + 8 * B, ops, I32_OPS))
+                print(f"kernel A bound: {edges} edges a frame x {B} frames "
+                      f"x {int(tr.max())} sweeps x {LDPC_OPS_PER_EDGE} int "
+                      f"ops = {ops:.3g} ops -> {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']}); bytes {2 * B * N + 8 * B}")
+    # the single-carrier receiver's calls: its F frames as they are
+    cases = {table: (rate, ebno) for table, rate, ebno in LDPC_CASES}
+    for table, Fs in SMALL_BATCHES:
+        rate, ebno = cases[table]
+        kt = tables.kernel_tables(table)
+        code = ldpc_spec.get_code(table)
+        for F in Fs:
+            rng = np.random.default_rng(10 + F)
+            cw = code.encode(rng.integers(0, 2, (F, code.K)).astype(np.uint8))
+            sigma = np.sqrt(1.0 / (2 * rate * 10 ** (ebno / 10)))
+            y = 1.0 - 2.0 * cw.astype(np.float32) + \
+                rng.normal(0, sigma, cw.shape).astype(np.float32)
+            llr = ldpc_kernel.quantize_llrs(
+                torch.from_numpy(2.0 * y / sigma ** 2).to(dev))
+            got = ldpc_kernel.decode_cuda(llr, kt, 12)
+            ref = ldpc_kernel.decode_plain(llr, kt, 12)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("hard", "n_bad", "trials"), got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"kernel A {table} F={F}: {name} differs from the "
+                        f"plain version in {int((a != b).sum())} places")
+            ms = cuda_ms(lambda: ldpc_kernel.decode_cuda(llr, kt, 12), 10)
+            print(f"kernel A {table} [{F}, {kt['N']}] Eb/N0 {ebno} dB, 12 "
+                  f"sweeps, early exit: bit-exact; trials "
+                  f"{got[2].tolist()}, n_bad {got[1].tolist()}; kernel "
+                  f"{ms:.3f} ms")
     row["max_abs_err"] = max(errs)
     return row
 
@@ -282,11 +415,11 @@ def phase_resample(torch, dev):
     DVB-S. The kernels row reports the first (the headline bank's)."""
     from dvbs_tpu_torch import tables
     from dvbs_tpu_torch.ops import resample_kernel as rk
-    C = N_CARRIERS
     coef_np, fmid, fhalf = tables.farrow_coeffs()
     coef = torch.from_numpy(coef_np).to(dev)
     row = None
-    for S in (552960, 377920, 284288, 227392, DVBS_BLOCK // 2):
+    for C, S in ((8, 552960), (8, 377920), (8, 284288), (8, 227392),
+                 (8, DVBS_BLOCK // 2), (1, SLICE_BLOCK)):
         n2 = 2 * S
         rng = np.random.default_rng(2)
         y = torch.from_numpy((rng.normal(size=(C, n2)) + 1j * rng.normal(
@@ -310,10 +443,20 @@ def phase_resample(torch, dev):
               f"(tol {RESAMPLE_TOL}), kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms")
         if row is None:
+            # bytes: y, u, rb, coef in, out written. Operations: 10 taps
+            # x (9 multiply-adds of Horner's rule + 2 for re and im)
+            nbytes = y.numel() * 8 + u.numel() * 4 + rb.numel() * 4 + \
+                coef.numel() * 4 + C * S * 8
             row = dict(name="resample_farrow", route="cuda",
                        source="dvbs_tpu_torch/csrc/resample_farrow.cu",
                        replaces="dvbs_tpu/ops/resample_pallas.py:202",
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None,
+                       **bound(nbytes, C * S * 10 * 22, F32_OPS))
+            print(f"kernel B bound: {nbytes} bytes -> "
+                  f"{nbytes / HBM_BPS * 1e3:.4f} ms; {C * S * 220} flops -> "
+                  f"{C * S * 220 / F32_OPS * 1e3:.4f} ms "
+                  f"({row['bound_by']})")
         row["max_abs_err"] = max(row["max_abs_err"], err)
     return row
 
@@ -321,7 +464,7 @@ def phase_resample(torch, dev):
 def phase_viterbi(torch, dev):
     """Kernel C against its plain version, bit-exact on every output bit
     (wings included), on three inputs."""
-    from dvbs_tpu.spec import dvbs_fec
+    from dvbs_tpu_torch.spec import dvbs_fec
     from dvbs_tpu_torch.ops import viterbi_kernel as vk
     rng = np.random.default_rng(3)
     B, T, wing = 4096, 704, 96           # the DVB-S bank's segments
@@ -359,10 +502,54 @@ def phase_viterbi(torch, dev):
     plain_ms = cuda_ms(lambda: vk.decode_plain(big), 2)
     print(f"kernel C [{B}, {T}, 2]: cores equal the bits sent; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return dict(name="viterbi_acs", route="cuda",
-                source="dvbs_tpu_torch/csrc/viterbi_acs.cu",
-                replaces="dvbs_tpu/ops/viterbi_pallas.py:247",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    nbytes = big.numel() * 4 + B * T
+    ops = B * T * VITERBI_OPS_PER_STEP
+    row = dict(name="viterbi_acs", route="cuda",
+               source="dvbs_tpu_torch/csrc/viterbi_acs.cu",
+               replaces="dvbs_tpu/ops/viterbi_pallas.py:247",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(nbytes, ops, F32_OPS))
+    print(f"kernel C bound: {nbytes} bytes -> {nbytes / HBM_BPS * 1e3:.4f} "
+          f"ms; {B} x {T} steps x {VITERBI_OPS_PER_STEP:.0f} flops = "
+          f"{ops:.3g} -> {ops / F32_OPS * 1e3:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_probe(torch, dev):
+    """Every probe stage against its plain version at the TPU probes'
+    shape (C=2, 4 chunks of 8 tiles) and at the bank's ([8, 2160, 256];
+    split at [8, 552960]), max abs error 0; then the probe's entry
+    point with the counts set to 0 just before. The kernels row reports
+    the `full` stage at the bank's shape."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.kernels import probe_resample as pr
+    rows = pr.run_all(dev)
+    worst = 0.0
+    for r in rows:
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"probe stage {r['stage']} {r['shape']}: max "
+                                 f"abs error {r['max_abs_err']} against its "
+                                 f"plain version")
+        worst = max(worst, r["max_abs_err"])
+    print(f"probe: {len(rows)} stage runs ({', '.join(pr.ALL_STAGES)}) "
+          f"equal to their plain versions (max abs err 0)")
+    backend.reset_launches()
+    assert pr.main() == 0
+    launches = dict(backend.LAUNCHES)
+    assert launches["resample_probe"] > 0
+    full = [r for r in rows if r["stage"] == "full"][-1]
+    C, ntp, TS = full["shape"]
+    # bytes: two planes of ntp + 4 rows, u and out of ntp rows, rb.
+    # Operations: 9 multiply-adds of the polynomial + 10 taps' per value
+    nbytes = C * TS * 4 * (2 * (ntp + pr.EXTRA) + 2 * ntp) + C * ntp * 4
+    row = dict(name="resample_probe", route="cuda",
+               source="dvbs_tpu_torch/csrc/resample_probe.cu",
+               replaces="tools/bisect_resample_kernel.py:102",
+               max_abs_err=worst, ms=full["device_ms"],
+               plain_ms=full["plain_ms"],
+               library_ms=None,
+               **bound(nbytes, C * ntp * TS * (18 + 20), F32_OPS))
+    return row, launches
 
 
 def stream_bank(torch, st, sigs, sents, blocks: int, label: str) -> dict:
@@ -370,8 +557,8 @@ def stream_bank(torch, st, sigs, sents, blocks: int, label: str) -> dict:
     with the counts set to 0 just before; every frame must decode and
     every carrier's TS must be one byte-exact contiguous run of its own
     packets. Returns the launch counts of the run."""
-    import bench
     from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.tx import signals
     cfg = st.cfg
     n = 2 * st.block_symbols
     F = st.F
@@ -401,7 +588,7 @@ def stream_bank(torch, st, sigs, sents, blocks: int, label: str) -> dict:
         f"frames lost: {st.frames_ok} of {st.frames_seen}"
     want = (blocks + 1) * F * (kb // 188) - 2
     for c in range(N_CARRIERS):
-        npk = bench.contiguous_packets(bytes(outs[c]), sents[c],
+        npk = signals.contiguous_packets(bytes(outs[c]), sents[c],
                                        f"{label} c{c}")
         assert npk >= want, f"c{c}: {npk} packets < {want}"
     print(f"{label} TS: every carrier one byte-exact contiguous run "
@@ -440,9 +627,9 @@ def phase_main_path(torch, dev, smi, sigs, sents):
 
 
 def phase_dvbs(torch, dev, smi, sigs, sents):
-    import bench
     from dvbs_tpu_torch import backend
     from dvbs_tpu_torch.parallel.dvbs_bank import DVBSBankStream
+    from dvbs_tpu_torch.tx import signals
     n = DVBS_BLOCK
     need = len(sigs[0])
     st = DVBSBankStream(N_CARRIERS, rate="1/2", block_samples=n,
@@ -463,7 +650,7 @@ def phase_dvbs(torch, dev, smi, sigs, sents):
           f"{launches}")
     assert st.locked.all() and (st.ber < 0.05).all(), \
         f"DVB-S bank must stay locked: ber={st.ber}"
-    npk = [bench.contiguous_packets(bytes(outs[c]), sents[c], f"dvbs c{c}")
+    npk = [signals.contiguous_packets(bytes(outs[c]), sents[c], f"dvbs c{c}")
            for c in range(N_CARRIERS)]
     assert min(npk) >= 100, npk
     print(f"DVB-S TS: every carrier one byte-exact contiguous run "
@@ -488,13 +675,13 @@ def phase_dvbs(torch, dev, smi, sigs, sents):
 
 
 def phase_pilots(torch, dev, smi, mc, label, sigs, sents):
-    """One step of bench.py's pilots bank at MODCOD mc (bench_hiord_bank):
+    """One step of the pilots bank at MODCOD mc:
     every frame decodes, no BCH flag, every carrier's TS one byte-exact
     contiguous run, kernels A and B launched; then the step is timed."""
-    import bench
-    from dvbs_tpu.io.native import NativeTSParser
-    from dvbs_tpu.spec import modcod
     from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.io.native import NativeTSParser
+    from dvbs_tpu_torch.spec import modcod
+    from dvbs_tpu_torch.tx import signals
     from dvbs_tpu_torch.parallel.mesh import (bank_block_symbols,
                                               build_carrier_bank)
     cfg = modcod.get_config(mc, short=False, pilots=True)
@@ -519,7 +706,7 @@ def phase_pilots(torch, dev, smi, mc, label, sigs, sents):
     assert (h["pls"] == cfg.pls_code).all(), f"{label}: PLS"
     kb = cfg.kbch // 8
     kbb = np.ascontiguousarray(h["kbch_bytes"].reshape(N_CARRIERS, F, kb))
-    npk = [bench.contiguous_packets(NativeTSParser(cfg.kbch).feed(kbb[c]),
+    npk = [signals.contiguous_packets(NativeTSParser(cfg.kbch).feed(kbb[c]),
                                     sents[c], f"{label} c{c}")
            for c in range(N_CARRIERS)]
     print(f"{label} TS: every carrier one byte-exact contiguous run "
@@ -540,9 +727,210 @@ def phase_pilots_stream(torch, dev, sigs, sents):
                        "8PSK 3/4 pilots stream")
 
 
+def measure_block(torch, rx, blk, label: str, count_kernels: bool) -> None:
+    """One block through a single-carrier receiver on the card: ms per
+    block (dispatch + finalize, min of 3), launches of kernels A and B,
+    and the time inside plphase.dd_phase_track (synchronised before and
+    after). With count_kernels, a torch.profiler pass adds the CUDA
+    kernels per block and their device time."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.ops import plphase
+    rx.process_symbols_block(blk)                     # warm up
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        res = rx.process_symbols_block(blk)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ours = dict(backend.LAUNCHES)
+    orig, dd = plphase.dd_phase_track, [0.0]
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        dd[0] += (time.perf_counter() - t0) * 1e3
+        return out
+    plphase.dd_phase_track = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx.process_symbols_block(blk)
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) * 1e3
+    finally:
+        plphase.dd_phase_track = orig
+    counted = ""
+    if count_kernels:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rx.process_symbols_block(blk)
+            torch.cuda.synchronize()
+        # device events that are kernels or copies, not the layers' ranges
+        evs = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+        dev_ms = sum(e.device_time for e in evs) / 1e3
+        counted = (f"{len(evs)} CUDA kernels a block ({dev_ms:.3f} ms of "
+                   f"device time, idle share "
+                   f"{max(0.0, 1 - dev_ms / min(ms)):.3f}); ")
+    print(f"{label} block [{len(blk)} samples, {rx.n_frames} frames, fec "
+          f"{rx.fec}]: min {min(ms):.3f} ms, mean {sum(ms) / 3:.3f} ms per "
+          f"block; {counted}launches per block: kernel A "
+          f"{ours['ldpc_layered']}, kernel B {ours['resample_farrow']}; "
+          f"dd_phase_track {dd[0]:.3f} ms of {whole:.3f} ms = share "
+          f"{dd[0] / whole:.3f}; trials {res.ldpc_trials.tolist()}")
+
+
+def slice_gate(cfg, ts: bytes, sent, ok: int, seen: int, label: str):
+    """The slice's gates on one run's output."""
+    from dvbs_tpu_torch.tx import signals
+    F = slice_frames(cfg)
+    per = (cfg.kbch - 80) // 8 // 188
+    npk = signals.contiguous_packets(ts, sent, label)
+    assert seen >= SLICE_BLOCKS * F, f"{label}: only {seen} frames seen"
+    assert ok >= seen - F, f"{label}: frames lost: {ok} of {seen}"
+    assert npk >= (seen - F - 2) * per, f"{label}: {npk} packets"
+    print(f"{label}: frames ok {ok}/{seen}; TS one byte-exact contiguous "
+          f"run of {npk} packets")
+
+
+def run_cli(args: list) -> tuple:
+    """The port's CLI in-process; returns (frames ok, frames seen) from
+    its last progress line."""
+    from dvbs_tpu_torch import cli
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    assert rc == 0, err.getvalue()[-2000:]
+    m = re.findall(r" ok=(\d+)/(\d+)", err.getvalue())
+    assert m, err.getvalue()[-2000:]
+    return int(m[-1][0]), int(m[-1][1])
+
+
+def phase_slice(torch, sigs, trace=None) -> list:
+    """The single-carrier DVB-S2 slice (phase 10 of the module
+    docstring). Returns the launch counts of every run. With `trace`, a
+    per-layer profile of one block of each configuration follows its
+    timing (traces to <trace>_<name>.json)."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.io import source
+    from dvbs_tpu_torch.models.driver import DVBS2Stream
+    from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
+    from dvbs_tpu_torch.spec import modcod
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def cli_run(name, label, extra, y=None, out="out.ts"):
+            mc, pilots, _, _ = SLICE[name]
+            y = sigs[name][0] if y is None else y
+            iq = os.path.join(tmp, f"{label}.cf32")
+            source.write_iq_file(iq, y)
+            args = ["--iq", iq, "--mode", "s2", "--modcod", str(mc),
+                    "--framesize", "normal", "--out", os.path.join(tmp, out)]
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            ok, seen = run_cli(args + (["--pilots"] if pilots else []) + extra)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(backend.LAUNCHES)
+            runs.append(launches)
+            F = slice_frames(modcod.get_config(mc, short=False, pilots=pilots))
+            blocks = seen // F
+            print(f"cli {label} ({' '.join(extra)}): {len(y)} samples, "
+                  f"{blocks} blocks in {dt:.2f} s = {dt / blocks * 1e3:.1f} "
+                  f"ms a block, reading and writing the files included; "
+                  f"launches {launches} = kernel A "
+                  f"{launches['ldpc_layered'] / blocks:.1f}, kernel B "
+                  f"{launches['resample_farrow'] / blocks:.1f} a block")
+            with open(os.path.join(tmp, out), "rb") as f:
+                return f.read(), ok, seen, launches
+
+        for name, (mc, pilots, snr, dummy) in SLICE.items():
+            cfg = modcod.get_config(mc, short=False, pilots=pilots)
+            y, sent = sigs[name]
+            label = f"slice {name} ({snr} dB)"
+            if dummy is None:
+                ts, ok, seen, launches = cli_run(name, name,
+                                                 ["--fec", "pallas"])
+                slice_gate(cfg, ts, sent, ok, seen, label)
+            else:
+                st = DVBS2Stream(mc=mc, short=False, pilots=pilots,
+                                 block_symbols=SLICE_BLOCK, fec="pallas",
+                                 dummy_aware=True)
+                out = bytearray()
+                backend.reset_launches()
+                for lo in range(0, len(y), 4 * SLICE_BLOCK):
+                    out.extend(st.feed(y[lo:lo + 4 * SLICE_BLOCK]))
+                torch.cuda.synchronize()
+                launches = dict(backend.LAUNCHES)
+                runs.append(launches)
+                from dvbs_tpu_torch.tx import signals
+                npk = signals.contiguous_packets(bytes(out), sent, label)
+                m = st.metrics
+                # one dummy after every `dummy` data frames: the slots
+                # that are not ok are the dummies, skipped without a gap
+                per = (cfg.kbch - 80) // 8 // 188
+                assert st.stats.blocks >= SLICE_BLOCKS - 1, st.stats.blocks
+                assert npk >= (m.frames_ok - 2) * per, (npk, m.frames_ok)
+                assert m.frames_ok >= 0.7 * m.frames_seen, \
+                    (m.frames_ok, m.frames_seen)
+                print(f"{label}, DVBS2Stream(dummy_aware=True): "
+                      f"{st.stats.blocks} blocks, slots ok {m.frames_ok}/"
+                      f"{m.frames_seen} (the rest dummy PLFRAMEs, skipped "
+                      f"without a gap); TS one byte-exact contiguous run of "
+                      f"{npk} packets; launches {launches}")
+            for k in ("ldpc_layered", "resample_farrow"):
+                assert launches[k] > 0, f"{label}: kernel {k} not launched"
+            rx = DVBS2Receiver(mc=mc, short=False, pilots=pilots,
+                               block_symbols=SLICE_BLOCK, fec="pallas",
+                               dummy_aware=dummy is not None)
+            measure_block(torch, rx, y[:2 * SLICE_BLOCK], label, bool(trace))
+            if trace:
+                blk = y[:2 * SLICE_BLOCK]
+                phase_profile(torch, lambda: rx.process_symbols_block(blk),
+                              f"{trace}_{name}.json", LAYERS_SLICE, label,
+                              reps=2)
+
+        # the float decoder (the CLI's default) on the QPSK 1/2 signal
+        cfg = modcod.get_config(4, short=False)
+        y, sent = sigs["qpsk12"]
+        ts, ok, seen, launches = cli_run("qpsk12", "qpsk12_xla",
+                                         ["--fec", "xla"])
+        slice_gate(cfg, ts, sent, ok, seen, "slice qpsk12 --fec xla")
+        assert launches["resample_farrow"] > 0 and \
+            launches["ldpc_layered"] == 0, launches
+        rx = DVBS2Receiver(mc=4, short=False, block_symbols=SLICE_BLOCK,
+                           fec="xla")
+        measure_block(torch, rx, y[:2 * SLICE_BLOCK], "slice qpsk12 --fec xla",
+                      bool(trace))
+
+        # two runs joined by a state file
+        state = os.path.join(tmp, "rx.state")
+        half = (len(y) // 2) // (4 * SLICE_BLOCK) * (4 * SLICE_BLOCK)
+        extra = ["--fec", "pallas", "--state-file", state]
+        ts_a, _, _, _ = cli_run("qpsk12", "qpsk12_a", extra, y[:half], "a.ts")
+        assert os.path.exists(state)
+        ts_b, ok, seen, _ = cli_run("qpsk12", "qpsk12_b", extra, y[half:],
+                                    "b.ts")
+        from dvbs_tpu_torch.tx import signals
+        npk = signals.contiguous_packets(ts_a + ts_b, sent, "state-file")
+        per = (cfg.kbch - 80) // 8 // 188
+        assert len(ts_a) > 0 and len(ts_b) > 0
+        assert npk >= (SLICE_BLOCKS - 1) * slice_frames(cfg) * per, npk
+        print(f"slice qpsk12 state-file resume: {len(ts_a) // 188} + "
+              f"{len(ts_b) // 188} packets, joined one byte-exact "
+              f"contiguous run of {npk}")
+    return runs
+
+
 LAYERS_S2 = ("frontend", "timing", "plsync", "phase", "demap", "ldpc",
              "bch_pack")
 LAYERS_DVBS = ("frontend", "timing", "carrier", "viterbi", "ber_pack")
+LAYERS_SLICE = LAYERS_S2 + ("dd_phase_track",)
 
 
 def phase_profile(torch, step, trace: str, layers: tuple, label: str,
@@ -581,12 +969,12 @@ def phase_profile(torch, step, trace: str, layers: tuple, label: str,
     busy_ms = sum(e["dur"] for e in kernels) / 1e3 / reps
     per_layer = collections.Counter()
     for k in kernels:
-        for sp in spans:
-            if sp["ts"] <= k["ts"] < sp["ts"] + sp["dur"]:
-                per_layer[sp["name"]] += k["dur"]
-                break
-        else:
-            per_layer["(outside)"] += k["dur"]
+        # the innermost range that holds the kernel's start
+        inside = [sp for sp in spans
+                  if sp["ts"] <= k["ts"] < sp["ts"] + sp["dur"]]
+        name = min(inside, key=lambda sp: sp["dur"])["name"] if inside \
+            else "(outside)"
+        per_layer[name] += k["dur"]
     print(f"profile of the {label} step ({reps} steps): host enqueue of one step "
           f"{min(enq):.3f} ms (min of 5, no profiler); with the profiler "
           f"on: wall {wall_ms:.3f} ms/step, kernels {busy_ms:.3f} ms/step, "
@@ -615,20 +1003,45 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import dvbs_tpu_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:6.1f} s] {phase} done",
+              flush=True)
     dev = torch.device("cuda", 0)
     smi = phase_card(torch)
-    sigs = phase_signals_and_build()
     trace = args.profile[:-5] if args.profile and \
         args.profile.endswith(".json") else args.profile
-    rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
-            phase_viterbi(torch, dev)]
-    runs = []                       # launch counts of every main-path run
+    # the workers make every phase's signals while this process builds
+    # the kernels and holds each against its plain version
+    workers = max(1, min(8, len(os.sched_getaffinity(0)) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        t0 = time.perf_counter()
+        jobs = start_signals(pool)
+        try:
+            phase_build()
+            stamp("build")
+            rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
+                    phase_viterbi(torch, dev)]
+            stamp("kernels A, B, C against their plain versions")
+            probe_row, probe_launches = phase_probe(torch, dev)
+            rows.append(probe_row)
+            stamp("probe stages")
+            sigs = collect_signals(jobs, t0, workers)
+        except BaseException:
+            pool.shutdown(wait=False, cancel_futures=True)
+            raise
+    stamp("signals")
+    runs = [probe_launches]         # launch counts of every main-path run
     launches, step = phase_main_path(torch, dev, smi, *sigs["s2"])
     runs.append(launches)
+    stamp("DVB-S2 QPSK 1/2 bank")
     if args.profile:
         phase_profile(torch, step, args.profile, LAYERS_S2, "DVB-S2")
     launches, step = phase_dvbs(torch, dev, smi, *sigs["dvbs"])
     runs.append(launches)
+    stamp("DVB-S bank")
     if args.profile:
         phase_profile(torch, step, trace + "_dvbs.json", LAYERS_DVBS,
                       "DVB-S")
@@ -640,6 +1053,9 @@ def main() -> int:
     if args.profile:                 # the last bank: 32APSK 3/4
         phase_profile(torch, step, trace + "_32apsk.json", LAYERS_S2,
                       "32APSK 3/4 pilots")
+    stamp("pilots banks")
+    runs += phase_slice(torch, sigs, trace if args.profile else None)
+    stamp("single-carrier slice")
     for r in rows:
         r["launches"] = sum(run[r["name"]] for run in runs)
     print(json.dumps({"kernels": rows}))

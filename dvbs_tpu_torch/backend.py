@@ -12,12 +12,29 @@ from __future__ import annotations
 import torch
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0, "viterbi_acs": 0}
+LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0, "viterbi_acs": 0,
+            "resample_probe": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def default_device() -> torch.device:
+    """The device of an entry point whose caller named none: the card.
+    Raises without one; the CPU is used only when asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: dvbs_tpu_torch runs on the GPU by default; "
+            "pass device='cpu' to run the kernels' plain versions on the "
+            "CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, None meaning default_device()."""
+    return default_device() if device is None else torch.device(device)
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -32,6 +32,10 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P],
     "resample_farrow": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "viterbi_acs": [_P, _I, _I, _P, _P],
+    "resample_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "resample_probe_prep": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "resample_probe_split": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                             _P],
 }
 
 _lib = None

@@ -17,18 +17,10 @@ import numpy as np
 
 import torch
 
-from dvbs_tpu.io import native as _native
-from dvbs_tpu.io.bbframe_parser import BBFrameParser
-from dvbs_tpu.spec import modcod, scrambling, bch_spec
+from .. import backend
+from ..spec import modcod, scrambling, bch_spec
 from ..ops import frontend
-
-
-def make_bbframe_parser(kbch: int):
-    """The native C++ BBFrame TS/GSE parser when built (make -C native),
-    the pure-python one otherwise (models/driver.make_bbframe_parser)."""
-    if _native.available():
-        return _native.NativeTSParser(kbch)
-    return BBFrameParser(kbch)
+from .driver import make_bbframe_parser
 
 
 class DVBS2BankStream:
@@ -40,7 +32,7 @@ class DVBS2BankStream:
                  pilots: bool = False, block_symbols: int | None = None,
                  fec: str = "auto", ingest: str = "f16",
                  n_iters: int = 12, max_ldpc_trials: int = 32,
-                 sof_threshold: float = 0.6, device="cpu", program=None,
+                 sof_threshold: float = 0.6, device=None, program=None,
                  auto_modcod: bool = True, on_modcod_switch=None,
                  vote_frames: int = 50):
         self.C = n_carriers
@@ -49,7 +41,7 @@ class DVBS2BankStream:
         self.n_iters = n_iters
         self._build_opts = dict(
             fec=fec, n_iters=n_iters, max_ldpc_trials=max_ldpc_trials,
-            device=device)
+            device=backend.resolve_device(device))
         self.auto_modcod = auto_modcod
         self.on_modcod_switch = on_modcod_switch
         # per-carrier confidence-gated PLS vote (reference main.cpp:383-

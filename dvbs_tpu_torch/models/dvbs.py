@@ -19,9 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from dvbs_tpu.io import native as _native
-from dvbs_tpu.io.ts_deframer import TSDeframer as _PyTSDeframer
-from dvbs_tpu.spec import dvbs_fec, rs_spec, scrambling
+from ..io import native as _native
+from ..io.ts_deframer import TSDeframer as _PyTSDeframer
+from ..spec import dvbs_fec, rs_spec, scrambling
+from .. import backend
 from ..ops import viterbi
 
 BER_THRESHOLD = 0.15
@@ -55,7 +56,7 @@ class DVBSReceiver:
 
     def __init__(self, rate: str | None = None,
                  block_symbols: int = 1 << 16,
-                 native_tail: bool | None = None, device="cpu"):
+                 native_tail: bool | None = None, device=None):
         self.block_symbols = block_symbols
         self.fixed_rate = rate
         self.locked = False
@@ -64,7 +65,7 @@ class DVBSReceiver:
         self.drop = 0
         self.ber = 1.0
         self.out_of_sync = 0
-        self.device = torch.device(device)
+        self.device = backend.resolve_device(device)
         if native_tail is None:
             native_tail = _native.available()
         self.native_tail = bool(native_tail)

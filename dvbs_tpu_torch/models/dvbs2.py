@@ -1,29 +1,38 @@
-"""DVB-S2 receiver geometry and its block symbol program, batched over
-carriers.
+"""DVB-S2 receiver: its block symbol program, batched over carriers,
+and the single-carrier block receiver.
 
-PyTorch port of dvbs_tpu/models/dvbs2.py (DVBS2Receiver and the `_build`
-program): samples -> AGC -> coarse CFO mix -> RRC matched filter ->
+PyTorch port of dvbs_tpu/models/dvbs2.py. `SymbolProgram` is the `_build`
+program: samples -> AGC -> coarse CFO mix -> RRC matched filter ->
 feed-forward timing recovery -> PL-frame sync -> block-common FED and
 L&R frequency -> header phase -> phase track -> PLS detect -> soft demap
 -> deinterleave, for C carriers at once. With pilots (any
 constellation) the phase track is the pilot-anchor track and the
-payload is the frame with its pilot blocks cut out; without pilots the
-port runs QPSK, whose 4th-power V&V track follows the header phase.
-Pilotless 8PSK, 16APSK and 32APSK (the decision-directed track) raise.
+payload is the frame with its pilot blocks cut out; without pilots QPSK
+runs the 4th-power V&V track and 8PSK, 16APSK and 32APSK the
+decision-directed track, each from the header phase. `dummy_aware`
+swaps in the chained frame locator and the coherence-gated frequency
+estimates for streams that hold dummy PLFRAMEs.
+
+`DVBS2Receiver` is the fixed-MODCOD block receiver: geometry, the
+symbol program at C = 1, the FEC (the float decode_qc, or the int8
+layered decoder's kernel on the F frames as they are), the two-pass
+escalation, and the host side (sync-quality gate, BCH repair of flagged
+frames). Not ported: `equalize=True` (ops/equalizer, ROADMAP queue 1)
+raises.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 
-from dvbs_tpu.spec import modcod
-from .. import tables
-from ..ops import demap, frontend, interleaver, plhdr, plphase, plsync
-
-_ROADMAP = ("pilotless {} (plphase.dd_phase_track) is not ported yet "
-            "(ROADMAP queue 1): the port's receiver runs every "
-            "constellation with pilots, and QPSK without")
+from ..spec import bch_spec, modcod, scrambling
+from .. import backend, tables
+from ..ops import (bch, demap, frontend, interleaver, ldpc_kernel, ldpc_qc,
+                   plhdr, plphase, plsync)
 
 
 class SymbolProgram(nn.Module):
@@ -34,11 +43,10 @@ class SymbolProgram(nn.Module):
 
     def __init__(self, cfg: modcod.ModcodConfig, block_symbols: int,
                  n_frames: int, edge_margin: int, device,
-                 np_tables: dict | None = None):
+                 np_tables: dict | None = None, dummy_aware: bool = False):
         super().__init__()
-        if not cfg.pilots and cfg.constellation != modcod.QPSK:
-            raise NotImplementedError(_ROADMAP.format(cfg.constellation))
         self.cfg = cfg
+        self.dummy_aware = dummy_aware
         self.F = n_frames
         self.edge_margin = edge_margin
         np_tables = np_tables or tables.receiver_tables(cfg, block_symbols)
@@ -75,14 +83,17 @@ class SymbolProgram(nn.Module):
                 self.farrow_band, n_windows=16)
         with record_function("plsync"):
             score, _ = plsync.correlate(z, self.corr_T)
-            starts, quality = plsync.locate_frames(
-                score, L, F, margin=self.edge_margin)
+            locate = plsync.locate_frames_chain if self.dummy_aware \
+                else plsync.locate_frames
+            starts, quality = locate(score, L, F, margin=self.edge_margin)
             frames = plsync.extract_frames(z, starts, L)     # [C, F, L]
         with record_function("phase"):
             pilots = (self.pstarts, self.pilot_descr) if cfg.pilots else None
-            fed = plphase.coarse_fed_common(frames, self.hdr_syms, pilots)
+            fed = plphase.coarse_fed_common(frames, self.hdr_syms, pilots,
+                                            robust=self.dummy_aware)
             frames = plphase.apply_freq(frames, fed[:, None].expand(C, F))
-            flr = plphase.lr_freq_common(frames, self.hdr_syms, pilots)
+            flr = plphase.lr_freq_common(frames, self.hdr_syms, pilots,
+                                         robust=self.dummy_aware)
             frames = plphase.apply_freq(frames, flr[:, None].expand(C, F))
             freq = (fed + flr)[:, None].expand(C, F)
             theta0 = plphase.header_phase(frames, self.hdr_syms)  # [C, F]
@@ -94,7 +105,14 @@ class SymbolProgram(nn.Module):
             else:
                 frames_c = plphase.derotate(frames, theta0[..., None])
                 payload = frames_c[..., 90:] * self.descr
-                vv = plphase.qpsk_vv_track(payload, torch.zeros_like(theta0))
+                if cfg.constellation == modcod.QPSK:
+                    vv = plphase.qpsk_vv_track(payload,
+                                               torch.zeros_like(theta0))
+                else:
+                    with record_function("dd_phase_track"):
+                        vv = plphase.dd_phase_track(
+                            payload, torch.zeros_like(theta0),
+                            self.demap_pts)
                 payload = plphase.derotate(payload, vv)
             header = frames_c[..., :90]
         with record_function("demap"):
@@ -110,24 +128,193 @@ class SymbolProgram(nn.Module):
                     pls=pls_idx, pls_conf=pls_conf, starts=starts)
 
 
+def run_fec(program: SymbolProgram, llrs: torch.Tensor, n_iters: int,
+            fec: str, kt: dict | None = None, keep_hard: bool = True
+            ) -> dict:
+    """LDPC decode + BCH syndrome check + byte packing + BB descramble
+    of llrs [B, nldpc] float, on the device. fec "xla" is the float
+    decode_qc, "pallas" the int8 layered decoder (kernel A on a CUDA
+    tensor) in calls of at most ldpc_kernel.CALL_FRAMES frames, each
+    frame count as it is. Returns kbch_bytes [B, kbch/8] uint8, trials,
+    ldpc_ok, bch_bad [B] (and hard [B, nldpc] with keep_hard)."""
+    cfg = program.cfg
+    with record_function("ldpc"):
+        if fec == "xla":
+            hard, n_bad, trials = ldpc_qc.decode_qc(
+                llrs, cfg.ldpc_table, n_iters=n_iters)
+        else:
+            hard, n_bad, trials = ldpc_kernel.decode_calls(
+                ldpc_kernel.quantize_llrs(llrs), cfg.ldpc_table, n_iters,
+                kt=kt)
+    with record_function("bch_pack"):
+        bch_bad = bch.syndrome_nonzero(hard[:, :cfg.nbch], program.bch_M)
+        packed = frontend.pack_bits_to_bytes(hard[:, :cfg.kbch]) \
+            ^ program.bb_mask
+    d = dict(kbch_bytes=packed, trials=trials, ldpc_ok=n_bad == 0,
+             bch_bad=bch_bad)
+    if keep_hard:
+        d["hard"] = hard
+    return d
+
+
+def device_kernel_tables(program: SymbolProgram) -> dict:
+    """The int8 decoder's schedule with its tables already on the
+    program's device."""
+    kt = dict(tables.kernel_tables(program.cfg.ldpc_table))
+    kt.update(g_tab=program.ldpc_g, s_tab=program.ldpc_s,
+              f_tab=program.ldpc_f)
+    return kt
+
+
+@dataclasses.dataclass
+class BlockResult:
+    """Host-side result of one processed block."""
+    bbframes: np.ndarray          # [F_ok, kbch/8] uint8 (descrambled)
+    frame_ok: np.ndarray          # [F] bool (LDPC converged & BCH fixable)
+    sync_quality: np.ndarray      # [F] float32 (PL correlation peak)
+    freq_err: np.ndarray          # [F] float32 rad/symbol residual
+    ldpc_trials: np.ndarray       # [F] int32
+    bch_corrections: np.ndarray   # [F] int32 (-1 = failure)
+    detected_pls: np.ndarray      # [F] int32
+    coarse_cfo: float             # rad/sample applied to the block
+    n_symbols: int                # symbols consumed (frames * L)
+    last_frame_end: int = 0       # symbol index just past the last frame
+    constellation: np.ndarray | None = None  # [2048] complex64 scatter
+                                  # (first 90 points = PLHEADER)
+    detected_pls_conf: np.ndarray | None = None  # [F] float32 confidence
+    starts: np.ndarray | None = None  # [F] int32 located frame starts
+
+
 class DVBS2Receiver:
-    """Fixed-MODCOD receiver geometry (dvbs2.DVBS2Receiver.__init__) and
-    its symbol program on `device`."""
+    """Fixed-MODCOD DVB-S2 block receiver (dvbs2.DVBS2Receiver) on
+    `device` (None: the card).
+
+    fec: "xla" runs the float decode_qc; "pallas" routes every decode
+    through the int8 layered decoder, kernel A on the card. The kernel
+    takes the block's F frames as they are: the JAX version pads them
+    cyclically to its 128 lanes, and its copies clear at their
+    originals' sweep, so hard, n_bad and trials of the F frames are the
+    same."""
 
     def __init__(self, mc: int = 4, short: bool = True, pilots: bool = False,
                  block_symbols: int = 1 << 15, max_ldpc_trials: int = 32,
-                 sof_threshold: float = 0.6, device="cpu",
+                 sof_threshold: float = 0.6, equalize: bool = False,
+                 fec: str = "xla", dummy_aware: bool = False, device=None,
                  np_tables: dict | None = None):
+        if fec not in ("xla", "pallas"):
+            raise ValueError(f"unknown fec {fec!r}")
+        if equalize:
+            raise NotImplementedError(
+                "equalize=True (ops/equalizer.lms_equalize) is not ported "
+                "yet: ROADMAP queue 1")
         self.cfg = modcod.get_config(mc, short=short, pilots=pilots)
         self.block_symbols = block_symbols
         self.max_ldpc_trials = max_ldpc_trials
         self.sof_threshold = sof_threshold
+        self.fec = fec
+        self.dummy_aware = dummy_aware
         L = self.cfg.plframe_len
         self.edge_margin = 256
         self.n_frames = (block_symbols - 2 * self.edge_margin - 90) // L - 1
         if self.n_frames < 1:
             raise ValueError("block_symbols must cover at least 2 PL frames")
-        self.device = torch.device(device)
+        self.device = backend.resolve_device(device)
         self.program = SymbolProgram(self.cfg, block_symbols, self.n_frames,
                                      self.edge_margin, self.device,
-                                     np_tables)
+                                     np_tables, dummy_aware=dummy_aware)
+        self._kt = device_kernel_tables(self.program)
+        # two-pass escalation: every block pays a short pass, the rare
+        # unconverged block reruns with the full budget
+        self.pass1_iters = min(10, max_ldpc_trials)
+        self._two_pass = max_ldpc_trials > self.pass1_iters
+
+    def _fec(self, llrs: torch.Tensor, n_iters: int) -> dict:
+        return run_fec(self.program, llrs, n_iters, self.fec, self._kt)
+
+    # ------------------------------------------------------------------
+    def dispatch_block(self, samples: np.ndarray) -> dict:
+        """Upload one block of 2-sps samples and enqueue the device chain
+        (symbol program, LDPC, BCH syndromes, packing) without waiting:
+        returns a dict of tensors on the device. The host is free to
+        finalize the previous block meanwhile."""
+        s = np.asarray(samples)
+        scale = np.sqrt(np.mean(np.abs(s) ** 2)) + 1e-30
+        ri = np.stack([s.real, s.imag]).astype(np.float32) / np.float32(scale)
+        with torch.no_grad():
+            dev_in = torch.from_numpy(ri[None]).to(self.device,
+                                                   non_blocking=True)
+            out = {k: v[0] for k, v in self.program(dev_in).items()}
+            llrs = out.pop("llrs")
+            out.update(self._fec(llrs, self.pass1_iters))
+        if self._two_pass:
+            out["_llrs"] = llrs     # stays on the device, for escalation
+        return out
+
+    def finalize_block(self, out: dict) -> BlockResult:
+        """Fetch a dispatched block's small outputs and run the host side:
+        the full-budget rerun of a block with unconverged, well-synced
+        frames, and BCH repair of flagged frames (only their hard-bit
+        rows are fetched)."""
+        cfg = self.cfg
+        llrs = out.pop("_llrs", None)
+        hard_dev = out.pop("hard")
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        F = out["ldpc_ok"].shape[0]
+        retried = np.zeros(F, bool)
+        hard2_dev = None
+        if llrs is not None:
+            retry = (~out["ldpc_ok"]) & (out["quality"] >= self.sof_threshold)
+            if retry.any():
+                with torch.no_grad():
+                    out2 = self._fec(llrs, self.max_ldpc_trials)
+                hard2_dev = out2.pop("hard")
+                out2 = {k: v.cpu().numpy() for k, v in out2.items()}
+                for k in ("ldpc_ok", "bch_bad", "kbch_bytes"):
+                    out[k] = np.where(
+                        retry.reshape((-1,) + (1,) * (out[k].ndim - 1)),
+                        out2[k], out[k])
+                out["trials"] = np.where(
+                    retry, self.pass1_iters + out2["trials"], out["trials"])
+                retried = retry
+        plain = np.array(out["kbch_bytes"])   # descrambled on the device
+        bch_bad = out["bch_bad"]
+        # frames below the PL-sync correlation threshold are noise:
+        # rejected before any host BCH work is spent on them
+        sync_ok = out["quality"] >= self.sof_threshold
+        bch_corr = np.full(F, -1, np.int32)
+        frame_ok = sync_ok & ~bch_bad
+        bch_corr[frame_ok] = 0
+        for f in np.nonzero(sync_ok & bch_bad)[0]:
+            hd = hard2_dev if retried[f] else hard_dev
+            bits = hd[f, :cfg.nbch].cpu().numpy()
+            fixed, ncorr = bch_spec.decode(bits, cfg.framesize, cfg.rate)
+            bch_corr[f] = ncorr
+            if ncorr < 0:
+                # BCH-inconsistent even after repair: the LDPC decoder
+                # settled on a wrong codeword; one garbage BBHEADER would
+                # desync the TS parser, so the frame is rejected and the
+                # parser gets a mark_gap instead
+                continue
+            frame_ok[f] = True
+            plain[f] = scrambling.bb_scramble_bytes(
+                np.packbits(fixed[:cfg.kbch]))
+        return BlockResult(
+            bbframes=plain[frame_ok],
+            frame_ok=frame_ok,
+            sync_quality=out["quality"],
+            freq_err=out["freq"],
+            ldpc_trials=out["trials"],
+            bch_corrections=bch_corr,
+            detected_pls=out["pls"].astype(np.int32),
+            coarse_cfo=float(out["cfo"][0]),
+            n_symbols=int(self.n_frames * cfg.plframe_len),
+            last_frame_end=int(out["starts"][-1]) + cfg.plframe_len,
+            constellation=(out["scatter"][0] +
+                           1j * out["scatter"][1]).astype(np.complex64),
+            detected_pls_conf=out["pls_conf"],
+            starts=out["starts"],
+        )
+
+    def process_symbols_block(self, samples: np.ndarray) -> BlockResult:
+        """Process one block of 2-sps samples (length 2*block_symbols)."""
+        return self.finalize_block(self.dispatch_block(samples))

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from dvbs_tpu.spec.interleaver import column_offsets
-from dvbs_tpu.spec.modcod import MOD_BITS, QPSK
+from ..spec.interleaver import column_offsets
+from ..spec.modcod import MOD_BITS, QPSK
 
 
 def deinterleave(llrs_sym: torch.Tensor, kind: str, framesize: str,

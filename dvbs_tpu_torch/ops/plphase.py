@@ -1,14 +1,15 @@
 """Per-frame carrier recovery: block-common frequency, anchored phase.
 
-PyTorch port of the parts of dvbs_tpu/ops/plphase.py that the receiver
-runs with pilots (every constellation) and without them (QPSK): the
-block-common lag-2 FED and Luise-Reggiannini frequency estimates over
-the known symbols (the header, and the descrambled pilot blocks when
-present), the header LS phase, the pilot-anchor phase track with its
-extrapolated tail, payload extraction, and the two-stage 4th-power
-Viterbi&Viterbi track of pilotless QPSK. Frames carry leading batch
-dimensions [..., F, L]; the block-common estimates average over the
-frame axis (-2) only.
+PyTorch port of dvbs_tpu/ops/plphase.py: the block-common lag-2 FED and
+Luise-Reggiannini frequency estimates over the known symbols (the
+header, and the descrambled pilot blocks when present), each with its
+coherence-gated `robust` form for blocks that hold dummy PLFRAMEs, the
+header LS phase, the pilot-anchor phase track with its extrapolated
+tail, payload extraction, the two-stage 4th-power Viterbi&Viterbi track
+of pilotless QPSK, and the chained decision-directed track of pilotless
+8PSK, 16APSK and 32APSK. Frames carry leading batch dimensions
+[..., F, L]; the block-common estimates average over the frame axis
+(-2) only.
 
 `pilots` arguments are None (no pilots) or (pstarts, pdescr): the pilot
 block starts (tables.pilot_starts, a uniform grid) and their descramble
@@ -52,31 +53,52 @@ def _lag_sum(seg: torch.Tensor, m: int, dims) -> torch.Tensor:
     return torch.sum(seg[..., m:] * torch.conj(seg[..., :-m]), dim=dims)
 
 
+def _gated_angle(acc_f: torch.Tensor, nprod: float, scale: float
+                 ) -> torch.Tensor:
+    """angle(sum of the coherent frames' accumulators) / scale. A frame
+    whose header is not the configured one (a dummy PLFRAME) sums its
+    lag products incoherently, |acc| ~ sqrt(n) instead of ~n, and is
+    left out; a block with no coherent frame estimates 0."""
+    w = (torch.abs(acc_f) > 0.35 * nprod).to(acc_f.dtype)
+    acc = torch.sum(acc_f * w, dim=-1)
+    return torch.where(torch.abs(acc) > 0, torch.angle(acc) / scale,
+                       torch.zeros_like(acc.real))
+
+
 def coarse_fed_common(frames: torch.Tensor, hdr: torch.Tensor,
-                      pilots=None) -> torch.Tensor:
+                      pilots=None, robust: bool = False) -> torch.Tensor:
     """Block-common lag-2 frequency estimate, rad/symbol, over the
-    header symbols and each pilot block as its own segment (the JAX
-    version with robust=False). frames [..., F, L], hdr [90] the
-    configured PLHEADER symbols -> [...]."""
+    header symbols and each pilot block as its own segment. frames
+    [..., F, L], hdr [90] the configured PLHEADER symbols -> [...].
+    robust gates each frame on its own coherence (_gated_angle)."""
     acc_f = _lag_sum(_known_header(frames, hdr), 2, -1)
+    nprod = 88.0
     if pilots is not None:
         acc_f = acc_f + _lag_sum(pilot_blocks(frames, pilots), 2, (-2, -1))
+        nprod += 34.0 * len(pilots[0])
+    if robust:
+        return _gated_angle(acc_f, nprod, 2.0)
     return torch.angle(torch.sum(acc_f, dim=-1)) / 2.0
 
 
 def lr_freq_common(frames: torch.Tensor, hdr: torch.Tensor, pilots=None,
-                   M: int = 8) -> torch.Tensor:
+                   M: int = 8, robust: bool = False) -> torch.Tensor:
     """Block-common Luise-Reggiannini estimate over the known symbols of
-    every frame (robust=False): lags 1..M within the header and within
-    each pilot block, never across a block boundary; angle(sum_m R_m) /
-    ((M+1)/2). -> [...]."""
+    every frame: lags 1..M within the header and within each pilot
+    block, never across a block boundary; angle(sum_m R_m) / ((M+1)/2).
+    -> [...]. robust as in coarse_fed_common."""
     h = _known_header(frames, hdr)
     blks = pilot_blocks(frames, pilots) if pilots is not None else None
     acc_f = torch.zeros(h.shape[:-1], dtype=torch.complex64, device=h.device)
+    nprod = 0.0
     for m in range(1, M + 1):
         acc_f = acc_f + _lag_sum(h, m, -1)
+        nprod += 90 - m
         if blks is not None:
             acc_f = acc_f + _lag_sum(blks, m, (-2, -1))
+            nprod += (36 - m) * len(pilots[0])
+    if robust:
+        return _gated_angle(acc_f, nprod, (M + 1) / 2.0)
     return torch.angle(torch.sum(acc_f, dim=-1)) / ((M + 1) / 2.0)
 
 
@@ -150,6 +172,57 @@ def qpsk_vv_track(payload: torch.Tensor, theta0: torch.Tensor
     flat = payload * _polar1(-ramp)
     ph2, _ = _vv_group_phases(flat, torch.zeros_like(theta0), 720)
     return ramp + _interp_phases(ph2, 720, P)
+
+
+def _dd_track_once(payload: torch.Tensor, theta0: torch.Tensor,
+                   pts: torch.Tensor, group: int, n_iter: int
+                   ) -> torch.Tensor:
+    """One chained decision-directed pass: phase [..., P]. Each group
+    starts from the previous group's estimate, so the loop over the
+    G = P // group groups is sequential; every step is batched over the
+    leading dimensions and nothing in it waits for the host."""
+    P = payload.shape[-1]
+    G = P // group
+    z = payload[..., :G * group].reshape(*payload.shape[:-1], G, group)
+    cpts = torch.conj(pts)
+    ph = theta0.to(torch.float32)
+    phases = []
+    for g in range(G):
+        zg = z[..., g, :]
+        for _ in range(n_iter):
+            zc = zg * _polar1(-ph)[..., None]
+            # nearest point; argmin keeps the first of equal distances
+            k = torch.argmin(torch.abs(zc[..., None] - pts), dim=-1)
+            ph = ph + torch.angle(torch.sum(zc * cpts[k], dim=-1))
+        phases.append(ph)
+    return _interp_phases(torch.stack(phases, dim=-1), group, P)
+
+
+def dd_phase_track(payload: torch.Tensor, theta0: torch.Tensor,
+                   pts: torch.Tensor, group: int = 60, n_iter: int = 3,
+                   freq_refine: bool = True) -> torch.Tensor:
+    """Decision-directed feed-forward phase track for any constellation
+    (pilotless 8PSK, 16APSK, 32APSK): per group of `group` symbols,
+    derotate by the current estimate, decide the nearest point of `pts`
+    (tables.demap_tables' points [S] complex64), re-estimate the phase
+    from sum z * conj(decision); n_iter times. The unwrap is anchored at
+    theta0, the header phase. With freq_refine a second pass runs after
+    removing the residual carrier read from the first pass (the median
+    of its group-to-group phase steps, the mean of the two middle
+    values for an even count). payload [..., P], theta0 [...] ->
+    per-symbol phase [..., P]."""
+    P = payload.shape[-1]
+    ph1 = _dd_track_once(payload, theta0, pts, group, n_iter)
+    if not freq_refine:
+        return ph1
+    G = P // group
+    gp = ph1[..., ::group][..., :G]
+    steps, _ = torch.sort(gp[..., 1:] - gp[..., :-1], dim=-1)
+    n = steps.shape[-1]
+    freq = (steps[..., (n - 1) // 2] + steps[..., n // 2]) / (2.0 * group)
+    ramp = freq[..., None] * torch.arange(P, device=payload.device)
+    pay2 = payload * _polar1(-ramp)
+    return ramp + _dd_track_once(pay2, theta0, pts, group, n_iter)
 
 
 def extract_payload(frames: torch.Tensor, pstarts, L: int) -> torch.Tensor:

@@ -3,7 +3,8 @@
 PyTorch port of dvbs_tpu/ops/plsync.py: the differential SOF+PLS
 correlation at every symbol offset as one banded-template matmul (bf16
 inputs, float32 products), the parallel frame locator with its
-per-frame relocation fallback, and frame extraction. Window starts are
+per-frame relocation fallback, the chained locator for grids that hold
+dummy PLFRAMEs, and frame extraction. Window starts are
 clamped to [0, n - L] where the JAX version's dynamic_slice clamps.
 """
 from __future__ import annotations
@@ -81,6 +82,51 @@ def locate_frames(score: torch.Tensor, frame_len: int, n_frames: int,
         starts = torch.where(use, rstart, starts)
         quality = torch.where(use, rq, quality)
     return starts.to(torch.int32), quality
+
+
+DUMMY_LEN = 90 + 36 * 90     # dummy PLFRAME (EN 302 307-1 sec. 5.5.1)
+
+
+def locate_frames_chain(score: torch.Tensor, frame_len: int, n_frames: int,
+                        search: int = 4, margin: int = 0,
+                        threshold: float = 0.6):
+    """Chained frame slotting for grids that are not L-periodic (dummy
+    PLFRAMEs between data frames): each slot chains from the previous
+    slot's refined start over the pitches {DUMMY_LEN, L, L + DUMMY_LEN,
+    L + 2 DUMMY_LEN} and takes the earliest candidate whose refined
+    correlation is above `threshold`, else the best one. A loop of
+    n_frames - 1 small gathers, batched over carriers, with no host
+    wait. score [C, n] -> (starts [C, F] int32, quality [C, F])."""
+    C, n = score.shape
+    dev = score.device
+    L = frame_len
+    lo0 = torch.full((C, 1), min(max(margin, 0), n - L), dtype=torch.int64,
+                     device=dev)
+    p0 = margin + torch.argmax(_windows(score, lo0, L)[:, 0], dim=-1)
+    offs = torch.arange(-search, search + 1, device=dev)
+    pitches = torch.tensor([DUMMY_LEN, L, L + DUMMY_LEN, L + 2 * DUMMY_LEN],
+                           device=dev)
+    c0 = torch.clamp(p0[:, None] + offs, 0, n - 1)              # [C, 2s+1]
+    v0 = torch.gather(score, 1, c0)
+    k0 = torch.argmax(v0, dim=-1, keepdim=True)
+    prev = torch.gather(c0, 1, k0)[:, 0]
+    starts, quality = [prev], [torch.gather(v0, 1, k0)[:, 0]]
+    for _ in range(n_frames - 1):
+        cc = torch.clamp((prev[:, None] + pitches)[..., None] + offs,
+                         0, n - 1)                              # [C, 4, 2s+1]
+        v = torch.gather(score, 1, cc.reshape(C, -1)).reshape(cc.shape)
+        q, r = torch.max(v, dim=-1)        # first index of equal values
+        above = q > threshold
+        # argmax of a 0/1 row: the earliest candidate above threshold
+        first = torch.argmax(above.to(torch.int8), dim=-1)
+        i = torch.where(above.any(dim=-1), first, torch.argmax(q, dim=-1))
+        ri = torch.gather(r, 1, i[:, None])
+        prev = torch.gather(cc, 1, i[:, None, None].expand(C, 1, cc.shape[2])
+                            )[:, 0].gather(1, ri)[:, 0]
+        starts.append(prev)
+        quality.append(torch.gather(q, 1, i[:, None])[:, 0])
+    return (torch.stack(starts, dim=1).to(torch.int32),
+            torch.stack(quality, dim=1))
 
 
 def extract_frames(z: torch.Tensor, starts: torch.Tensor, frame_len: int

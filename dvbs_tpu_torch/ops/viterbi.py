@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import tables
+from .. import backend, tables
 
 N_STATES = tables.N_STATES
 
@@ -72,9 +72,10 @@ def segment_stream(llrs: np.ndarray, core: int = 2048, wing: int = 96):
 
 
 def decode_stream(llrs: np.ndarray, core: int = 2048, wing: int = 96,
-                  device="cpu") -> np.ndarray:
+                  device=None) -> np.ndarray:
     """Host convenience path: [n, 2] float -> [n] uint8 decoded bits,
-    the segments decoded on `device`."""
+    the segments decoded on `device` (None: the card)."""
+    device = backend.resolve_device(device)
     segs, n = segment_stream(llrs, core, wing)
     bits = decode_segments(torch.from_numpy(segs.astype(np.float32))
                            .to(device)).cpu().numpy()

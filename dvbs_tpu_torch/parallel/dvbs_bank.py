@@ -31,9 +31,9 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from dvbs_tpu.io import native as _native
-from dvbs_tpu.spec import dvbs_fec
-from .. import tables
+from ..io import native as _native
+from ..spec import dvbs_fec
+from .. import backend, tables
 from ..models.dvbs import DVBSReceiver
 from ..ops import frontend, plphase, viterbi_kernel
 
@@ -226,14 +226,14 @@ class DVBSStreamBank(nn.Module):
 def build_dvbs_stream_bank(n_carriers: int, rate: str = "1/2",
                            block_samples: int = 1 << 17, core: int = 512,
                            wing: int = 96, ingest: str = "cs4",
-                           device="cpu"):
+                           device=None):
     """The streaming bank on `device`: returns (step, example, geom)
     as dvbs_bank.build_dvbs_stream_bank. step(samples, hints [C, 6])
     takes cs4 uint8 [C, n] or float16 re/im [C, 2, n] (ingest)."""
     if ingest not in ("cs4", "f16"):
         raise ValueError(f"unknown ingest format {ingest!r}")
     step = DVBSStreamBank(n_carriers, rate, block_samples, core, wing,
-                          ingest, torch.device(device))
+                          ingest, backend.resolve_device(device))
     C, n = n_carriers, block_samples
     if ingest == "cs4":
         example = np.zeros((C, n), np.uint8)
@@ -259,12 +259,12 @@ class DVBSBankStream:
 
     def __init__(self, n_carriers: int, rate: str = "1/2",
                  block_samples: int = 1 << 17, ingest: str = "f16",
-                 device="cpu"):
+                 device=None):
         self.C = n_carriers
         self.rate = rate
         self.n = block_samples
         self.ingest = ingest
-        self.device = torch.device(device)
+        self.device = backend.resolve_device(device)
         self.step, _, self.geom = build_dvbs_stream_bank(
             n_carriers, rate=rate, block_samples=block_samples,
             ingest="cs4" if ingest == "cs4" else "f16", device=self.device)
@@ -285,7 +285,8 @@ class DVBSBankStream:
     def _make_tail(self):
         if self._native_tail:
             return _native.NativeDVBSTail()
-        return DVBSReceiver(rate=self.rate, native_tail=False)
+        return DVBSReceiver(rate=self.rate, native_tail=False,
+                            device=self.device)
 
     def _tail_feed(self, c: int, bits: np.ndarray) -> bytes:
         t0 = time.perf_counter()

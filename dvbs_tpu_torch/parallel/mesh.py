@@ -3,9 +3,9 @@
 PyTorch port of `bank_block_symbols` and `build_carrier_bank` of
 dvbs_tpu/parallel/mesh.py. The JAX version vmaps the per-carrier symbol
 program; here the program is batched over carriers, and the FEC decodes
-all C*F frames of the block with the int8 layered decoder in 128-frame
-calls, then checks BCH syndromes, packs the kbch bits to bytes and
-BB-descrambles them on the device.
+all C*F frames of the block (the int8 layered decoder in 128-frame
+calls, or the float decode_qc), then checks BCH syndromes, packs the
+kbch bits to bytes and BB-descrambles them on the device.
 """
 from __future__ import annotations
 
@@ -14,10 +14,9 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from dvbs_tpu.spec import modcod
-from .. import tables
-from ..models.dvbs2 import DVBS2Receiver
-from ..ops import bch, frontend, ldpc_kernel
+from ..spec import modcod
+from ..models.dvbs2 import DVBS2Receiver, run_fec
+from ..ops import frontend
 
 
 def bank_block_symbols(n_carriers: int = 8, mc: int = 4,
@@ -32,7 +31,7 @@ def bank_block_symbols(n_carriers: int = 8, mc: int = 4,
 
 
 class CarrierBank(nn.Module):
-    """The bank step: symbol program + int8 FEC + BCH check + packing."""
+    """The bank step: symbol program + FEC + BCH check + packing."""
 
     def __init__(self, rx: DVBS2Receiver, n_carriers: int, n_iters: int,
                  ingest: str, stream_outputs: bool):
@@ -43,31 +42,12 @@ class CarrierBank(nn.Module):
         self.n_iters = n_iters
         self.ingest = ingest
         self.stream_outputs = stream_outputs
-        cfg = rx.cfg
-        kt = dict(tables.kernel_tables(cfg.ldpc_table))
-        # the decoder's schedule, already on the device
-        kt.update(g_tab=self.program.ldpc_g, s_tab=self.program.ldpc_s,
-                  f_tab=self.program.ldpc_f)
-        self._kt = kt
 
     def fec(self, llrs: torch.Tensor, n_iters: int) -> dict:
         """llrs [C*F, nldpc] float -> kbch_bytes, trials, ldpc_ok,
         bch_bad (and hard with stream_outputs)."""
-        cfg = self.rx.cfg
-        p = self.program
-        with record_function("ldpc"):
-            hard, n_bad, trials = ldpc_kernel.decode_calls(
-                ldpc_kernel.quantize_llrs(llrs), cfg.ldpc_table, n_iters,
-                kt=self._kt)
-        with record_function("bch_pack"):
-            bch_bad = bch.syndrome_nonzero(hard[:, :cfg.nbch], p.bch_M)
-            packed = frontend.pack_bits_to_bytes(hard[:, :cfg.kbch]) \
-                ^ p.bb_mask
-        d = dict(kbch_bytes=packed, trials=trials, ldpc_ok=n_bad == 0,
-                 bch_bad=bch_bad)
-        if self.stream_outputs:
-            d["hard"] = hard
-        return d
+        return run_fec(self.program, llrs, n_iters, self.rx.fec,
+                       self.rx._kt, keep_hard=self.stream_outputs)
 
     def forward(self, samples: torch.Tensor) -> dict:
         if self.ingest == "cs4":
@@ -88,9 +68,9 @@ def build_carrier_bank(n_carriers: int, mc: int = 4, short: bool = False,
                        pilots: bool = False, block_symbols: int = 1 << 17,
                        n_iters: int = 12, fec: str = "auto",
                        ingest: str = "cs8", stream_outputs: bool = False,
-                       n_iters_full: int = 32, device="cpu",
+                       n_iters_full: int = 32, device=None,
                        np_tables: dict | None = None):
-    """The bank on `device`: returns (step_fn, example_input), or with
+    """The bank on `device` (None: the card): returns (step_fn, example_input), or with
     stream_outputs (step_fn, example_input, escalate_fn).
 
     step(samples) maps cs8 int8 [C, 2, n] or cs4 uint8 [C, n] (ingest)
@@ -99,21 +79,18 @@ def build_carrier_bank(n_carriers: int, mc: int = 4, short: bool = False,
     starts [C, F], cfo [C, 1], freq [C, F], hard [C*F, nldpc] and llrs
     [C*F, nldpc], and escalate(llrs) reruns the FEC at n_iters_full.
 
-    fec: "int8" (the int8 layered decoder; "auto" resolves to it).
+    fec: "int8" or "pallas" (the int8 layered decoder; "auto" resolves
+    to it), or "xla" (the float decode_qc).
     """
-    if fec == "auto":
-        fec = "int8"
-    if fec == "xla":
-        raise NotImplementedError(
-            "fec='xla' (the float decode_qc) is not ported yet: "
-            "ROADMAP queue 1, FEC glue")
-    if fec != "int8":
+    if fec in ("auto", "int8"):
+        fec = "pallas"
+    if fec not in ("pallas", "xla"):
         raise ValueError(f"unknown fec {fec!r}")
     if ingest not in ("cs8", "cs4"):
         raise ValueError(f"unknown ingest format {ingest!r}")
     rx = DVBS2Receiver(mc=mc, short=short, pilots=pilots,
                        block_symbols=block_symbols,
-                       max_ldpc_trials=n_iters, device=device,
+                       max_ldpc_trials=n_iters, fec=fec, device=device,
                        np_tables=np_tables)
     bank = CarrierBank(rx, n_carriers, n_iters, ingest, stream_outputs)
     if ingest == "cs4":

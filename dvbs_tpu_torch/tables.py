@@ -1,8 +1,8 @@
 """Every constant table of the receive path, built in numpy.
 
 The JAX package builds these tables inside modules that import jax, so
-the port derives them again here from the shared numpy layers
-(`dvbs_tpu.spec`, `dvbs_tpu.tx`). This module is the port's counterpart
+the port derives them again here from its own numpy layers (`spec/`,
+`tx/`). This module is the port's counterpart
 of carried-over weights: `receiver_tables` gathers what one receiver
 geometry needs into a dict of numpy arrays, and `to_torch` turns such a
 dict into tensors on a device. tests/test_torch_tables.py (and
@@ -16,9 +16,9 @@ import functools
 import numpy as np
 import torch
 
-from dvbs_tpu.spec import (bch_spec, constellations, dvbs_fec, ldpc_spec,
+from .spec import (bch_spec, constellations, dvbs_fec, ldpc_spec,
                            modcod, plheader, scrambling)
-from dvbs_tpu.tx import channel, dvbs2_mod
+from .tx import channel, dvbs2_mod
 
 LANES = 360                # QC circulant size of every DVB-S2 LDPC code
 

@@ -73,7 +73,8 @@ def test_bank_step_matches(signals, jax_step_out, tables_from):
         np_tables = jax_receiver_tables(CFG, BLOCK)
     step, example, _ = mesh.build_carrier_bank(
         C, mc=MC, short=SHORT, block_symbols=BLOCK, fec="int8",
-        ingest="cs4", stream_outputs=True, np_tables=np_tables)
+        ingest="cs4", stream_outputs=True, np_tables=np_tables,
+        device="cpu")
     samples = np.stack([s[:N] for s in signals[0]])
     assert samples.shape == example.shape and samples.dtype == example.dtype
     out = {k: v.numpy() for k, v in step(torch.from_numpy(samples)).items()}
@@ -87,15 +88,21 @@ def test_bank_step_matches(signals, jax_step_out, tables_from):
 
 
 def test_fec_names():
-    kw = dict(mc=MC, short=SHORT, block_symbols=BLOCK)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.build_carrier_bank(C, fec="xla", **kw)
+    """"auto", "int8" and "pallas" name the int8 layered decoder, "xla"
+    the float decode_qc; pilotless 8PSK builds (the decision-directed
+    track); an unknown name raises."""
+    kw = dict(mc=MC, short=SHORT, block_symbols=BLOCK, device="cpu")
+    for name, want in (("auto", "pallas"), ("int8", "pallas"),
+                       ("pallas", "pallas"), ("xla", "xla")):
+        step, _ = mesh.build_carrier_bank(C, fec=name, **kw)
+        assert step.rx.fec == want
     with pytest.raises(ValueError):
-        mesh.build_carrier_bank(C, fec="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.build_carrier_bank(C, mc=13, short=True, block_symbols=BLOCK)
+        mesh.build_carrier_bank(C, fec="f32", **kw)
+    step, _ = mesh.build_carrier_bank(C, mc=13, short=True,
+                                      block_symbols=BLOCK, device="cpu")
+    assert not step.rx.cfg.pilots
     step, _ = mesh.build_carrier_bank(C, mc=13, short=True, pilots=True,
-                                      block_symbols=BLOCK)
+                                      block_symbols=BLOCK, device="cpu")
     assert step.rx.cfg.pilots and step.rx.cfg.constellation == modcod.PSK8
 
 
@@ -136,7 +143,7 @@ def _contiguous(got: bytes, sent: np.ndarray) -> int:
 def test_bank_stream_same_ts(signals, jax_stream_ts):
     sigs, sents = signals
     st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=BLOCK,
-                         fec="int8", ingest="cs4")
+                         fec="int8", ingest="cs4", device="cpu")
     outs = [bytearray(), bytearray()]
     _stream(st, sigs, 0, _need(), outs)
     for c, o in zip(st.flush(), outs):
@@ -157,7 +164,7 @@ def test_dvbs_tpu_checkpoint_resumes_in_port(signals, jax_stream_ts):
     _stream(st, sigs, 0, split, outs)
     blob = st.get_state()
     st2 = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=BLOCK,
-                          fec="int8", ingest="cs4")
+                          fec="int8", ingest="cs4", device="cpu")
     st2.set_state(blob)
     _stream(st2, sigs, split, _need(), outs)
     for c, o in zip(st2.flush(), outs):

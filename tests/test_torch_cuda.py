@@ -18,20 +18,28 @@ Tolerances and why:
   exact, quality within 1e-3 (float32 sums in another order);
 - the small DVB-S bank step on the card against the same step on the
   CPU: decoded bits and re-encode BER exact (a 12 dB signal decodes to
-  the bits sent on both), hints within 1e-3.
+  the bits sent on both), hints within 1e-3;
+- the resampler's probe stages: max abs error 0 (copies, adds, and a
+  polynomial rounded one operation at a time as the plain version);
+- the single-carrier receiver and stream (pilotless 8PSK, the
+  decision-directed track) on the card, no device named, against the
+  same on the CPU: frame verdicts, trials and bytes exact.
 """
 import numpy as np
 import pytest
 import torch
 
-from dvbs_tpu.spec import ldpc_spec, modcod
-from dvbs_tpu.tx import channel, dvbs2_mod, dvbs_mod
 from dvbs_tpu_torch import backend, tables
+from dvbs_tpu_torch.kernels import probe_resample as pr
+from dvbs_tpu_torch.models.driver import DVBS2Stream
+from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
 from dvbs_tpu_torch.ops import ldpc_kernel
 from dvbs_tpu_torch.ops import resample_kernel as rk
 from dvbs_tpu_torch.ops import viterbi_kernel as vk
 from dvbs_tpu_torch.ops.frontend import pack_cs4
 from dvbs_tpu_torch.parallel import dvbs_bank, mesh
+from dvbs_tpu_torch.spec import ldpc_spec, modcod
+from dvbs_tpu_torch.tx import channel, dvbs2_mod, dvbs_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -258,3 +266,78 @@ def test_dvbs_bank_step_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(gpu["bits"], cpu["bits"])
     np.testing.assert_array_equal(gpu["ber"], cpu["ber"])
     assert np.abs(gpu["hints"] - cpu["hints"]).max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the resampler's probe stages, kernel A at small batches, the receiver
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stage", list(pr.STAGES))
+def test_probe_stage_matches_plain(dev, stage):
+    for kw in (dict(), dict(C=3, nck=5, TC=4, seed=2)):
+        inp = pr.make_inputs(stage, dev, **kw)
+        n0 = backend.LAUNCHES["resample_probe"]
+        got = pr.run_stage(inp)
+        assert backend.LAUNCHES["resample_probe"] == n0 + 1
+        ref = pr.stage_plain(inp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_probe_split_matches_kernel_b(dev):
+    sp = pr.make_split_inputs(dev, C=3, S=70000, seed=4)
+    nt = sp["rb"].shape[1]
+    planes = pr.split_prep(sp["y2"], nt, sp["bias"])
+    for p, r in zip(planes, pr.split_prep_plain(sp["y2"], nt, sp["bias"])):
+        assert torch.equal(p, r)
+    got = pr.split_kernel(planes, sp["u"], sp["rb"], sp["coef"], sp["S"])
+    fused = rk.resample_cuda(sp["y2"], sp["u"], sp["rb"], sp["bias"],
+                             sp["coef"], sp["S"])
+    ref = rk.resample_plain(sp["y2"], sp["u"], sp["rb"], sp["bias"],
+                            sp["coef"], sp["S"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused)
+    assert float(torch.abs(got - ref).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("F", [1, 3, 8, 130])
+def test_ldpc_kernel_any_frame_count(dev, c4_llrs, F):
+    """The single-carrier receiver hands the kernel its F frames as they
+    are; above 128 frames decode_calls cuts them into calls."""
+    x = torch.cat([c4_llrs, c4_llrs])[:F].to(dev)
+    got = ldpc_kernel.decode_calls(x, "C4", 12)
+    ref = ldpc_kernel.decode_calls(x.cpu(), "C4", 12)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_receiver_and_stream_on_the_card(dev):
+    """No device named: the card. Pilotless 8PSK 2/3 short frames."""
+    assert backend.default_device().type == "cuda"
+    cfg = modcod.get_config(13, short=True)
+    pkts = dvbs2_mod.random_ts_packets(400, seed=1)
+    tx = dvbs2_mod.bbframes_to_plframes(
+        dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+    y = channel.impair(channel.shape(tx, sps=2), snr_db=11.0,
+                       cfo=0.006 * np.pi, delay_samples=0.4, sco_ppm=10.0,
+                       seed=2)
+    B = 1 << 15
+    kw = dict(mc=13, short=True, block_symbols=B, fec="pallas")
+    rx = DVBS2Receiver(**kw)
+    assert rx.device.type == "cuda"
+    backend.reset_launches()
+    got = rx.process_symbols_block(y[:2 * B])
+    assert backend.LAUNCHES["ldpc_layered"] == rx.pass1_iters
+    assert backend.LAUNCHES["resample_farrow"] == 1
+    ref = DVBS2Receiver(device="cpu", **kw).process_symbols_block(y[:2 * B])
+    assert ref.frame_ok.all()
+    for name in ("frame_ok", "ldpc_trials", "bch_corrections", "detected_pls",
+                 "starts", "bbframes"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=name)
+    outs = []
+    for d in (None, "cpu"):
+        st = DVBS2Stream(device=d, **kw)
+        outs.append(b"".join(st.feed(y[lo:lo + B])
+                             for lo in range(0, len(y), B)))
+    assert outs[0] == outs[1] and len(outs[0]) > 188 * 100

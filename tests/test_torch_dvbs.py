@@ -188,8 +188,8 @@ def test_bank_step(half):
                                                 block_samples=BLOCK)
     ref = {k: np.asarray(v) for k, v in
            jstep(jnp.asarray(samples), jnp.asarray(hints)).items()}
-    step, example, geom = tb.build_dvbs_stream_bank(C, rate="1/2",
-                                                    block_samples=BLOCK)
+    step, example, geom = tb.build_dvbs_stream_bank(
+        C, rate="1/2", block_samples=BLOCK, device="cpu")
     assert samples.shape == example.shape and samples.dtype == example.dtype
     assert geom == jgeom
     out = {k: v.numpy() for k, v in
@@ -203,7 +203,8 @@ def test_bank_step(half):
 
 def test_build_rejects_unknown_ingest():
     with pytest.raises(ValueError):
-        tb.build_dvbs_stream_bank(C, block_samples=BLOCK, ingest="cs8")
+        tb.build_dvbs_stream_bank(C, block_samples=BLOCK, ingest="cs8",
+                                  device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +220,7 @@ def test_try_lock(front, rate):
         .numpy()
     want = JaxReceiver(rate=rate, block_symbols=BLOCK // 2)
     want._try_lock(soft)
-    got = DVBSReceiver(rate=rate, block_symbols=BLOCK // 2)
+    got = DVBSReceiver(rate=rate, block_symbols=BLOCK // 2, device="cpu")
     got._try_lock(soft)
     assert want.locked and got.locked
     assert (got.rate, got.rotation, got.drop, got.ber) == \
@@ -245,7 +246,7 @@ def test_host_tail_python():
     rng = np.random.default_rng(2)
     bits[rng.integers(0, len(bits), 40)] ^= 1     # RS corrects these
     want = JaxReceiver(rate="1/2", native_tail=False)
-    got = DVBSReceiver(rate="1/2", native_tail=False)
+    got = DVBSReceiver(rate="1/2", native_tail=False, device="cpu")
     out_w, out_g = [], []
     for lo in range(0, len(bits), 9001):          # cuts across frames
         out_w.append(want._host_tail(bits[lo:lo + 9001], None, 0))
@@ -268,7 +269,8 @@ def test_host_tail_python():
 
 def _run(cls, sigs, rate, ingest, chunk, lo=0, hi=None, st=None):
     if st is None:
-        st = cls(C, rate=rate, block_samples=BLOCK, ingest=ingest)
+        kw = dict(device="cpu") if cls is tb.DVBSBankStream else {}
+        st = cls(C, rate=rate, block_samples=BLOCK, ingest=ingest, **kw)
     hi = len(sigs[0]) if hi is None else hi
     outs = [bytearray() for _ in range(C)]
     while lo < hi:
@@ -335,20 +337,21 @@ def test_dvbs_tpu_checkpoint_resumes_in_port(half, jax_half_f16):
     st, head = _run(jb.DVBSBankStream, sigs, "1/2", "f16", BLOCK * 2 // 3,
                     hi=split)
     port = tb.DVBSBankStream(C, rate="1/2", block_samples=BLOCK,
-                             ingest="f16")
+                             ingest="f16", device="cpu")
     port.set_state(st.get_state())
     _, tail = _run(None, sigs, "1/2", "f16", BLOCK * 2 // 3, lo=split,
                    st=port)
     for c in range(C):
         assert head[c] + tail[c] == jax_half_f16[c]
     with pytest.raises(ValueError):
-        tb.DVBSBankStream(C, rate="3/4", block_samples=BLOCK).set_state(
+        tb.DVBSBankStream(C, rate="3/4", block_samples=BLOCK,
+                          device="cpu").set_state(
             st.get_state())
 
 
 def test_feed_dtype_switch_raises(half):
     st = tb.DVBSBankStream(C, rate="1/2", block_samples=BLOCK,
-                           ingest="cs4")
+                           ingest="cs4", device="cpu")
     st.feed([tf.pack_cs4(s[:1000]) for s in half[0]])
     with pytest.raises(TypeError):
         st.feed([s[1000:2000] for s in half[0]])
@@ -363,7 +366,8 @@ def test_cs4_checkpoint_resumes(half):
     split = 2 * BLOCK + BLOCK // 2
     st, head = _run(tb.DVBSBankStream, sigs, "1/2", "cs4", BLOCK, hi=split)
     blob = st.get_state()
-    st2 = tb.DVBSBankStream(C, rate="1/2", block_samples=BLOCK, ingest="cs4")
+    st2 = tb.DVBSBankStream(C, rate="1/2", block_samples=BLOCK, ingest="cs4",
+                            device="cpu")
     st2.set_state(blob)
     assert all(f.dtype == np.uint8 for f in st2._fifos)
     _, tail = _run(None, sigs, "1/2", "cs4", BLOCK, lo=split, st=st2)

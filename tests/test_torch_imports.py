@@ -1,17 +1,22 @@
-"""dvbs_tpu_torch and chip_smoke.py import torch and never jax.
+"""dvbs_tpu_torch and chip_smoke.py import torch, never jax, and nothing
+of dvbs_tpu; they run on the card unless asked for the CPU.
 
 The machine with the GPU has no JAX. A fresh interpreter imports every
-module of the port, chip_smoke, and every module chip_smoke imports
-inside its phases (without running them); no jax or jaxlib module may
-appear. Without a CUDA device chip_smoke.py exits non-zero and prints no
-result, both from a checkout and alone in an empty directory. Exact: a
-set of module names, an exit code, an empty standard output.
+module of the port and chip_smoke; no dvbs_tpu, jax or jaxlib module may
+appear, and no source of the port or of chip_smoke names one in an
+import. Without a CUDA device chip_smoke.py exits non-zero and prints no
+result, both from a checkout and alone in an empty directory, and every
+entry point of the port raises RuntimeError when no device is named and
+works with device="cpu". Exact: a set of module names, an exit code, an
+empty standard output, an exception type.
 """
 import os
+import re
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
@@ -30,15 +35,12 @@ names = ["dvbs_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-# what chip_smoke's phases import when they run
-import bench
-from dvbs_tpu.io import native
-from dvbs_tpu.spec import dvbs_fec, ldpc_spec, modcod
-from dvbs_tpu.tx import channel, dvbs_mod
 new = set(sys.modules) - before
-bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib"))
+bad = sorted(m for m in new
+             if m.split(".")[0] in ("jax", "jaxlib", "dvbs_tpu", "bench"))
 assert "torch" in sys.modules
-print(len(names), "modules;", "jax modules:", bad)
+assert len(names) > 40, names
+print(len(names), "modules;", "foreign modules:", bad)
 sys.exit(1 if bad else 0)
 """
 
@@ -54,7 +56,82 @@ def test_port_and_chip_smoke_import_no_jax():
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "jax modules: []" in res.stdout
+    assert "foreign modules: []" in res.stdout
+
+
+def test_no_source_imports_the_jax_package():
+    """Lazy imports too: no import statement in the port or chip_smoke
+    names jax, jaxlib, bench or dvbs_tpu."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|bench|dvbs_tpu)\b",
+                     re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dvbs_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    for f in files:
+        with open(f) as fh:
+            hit = pat.search(fh.read())
+        assert hit is None, (f, hit.group(0))
+
+
+def _entry_points():
+    from dvbs_tpu_torch.models.bank_stream import DVBS2BankStream
+    from dvbs_tpu_torch.models.driver import DVBS2Stream
+    from dvbs_tpu_torch.models.dvbs import DVBSReceiver
+    from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
+    from dvbs_tpu_torch.ops import viterbi
+    from dvbs_tpu_torch.ops.resample import Channelizer, StreamingResampler
+    from dvbs_tpu_torch.parallel.dvbs_bank import (DVBSBankStream,
+                                                   build_dvbs_stream_bank)
+    from dvbs_tpu_torch.parallel.mesh import build_carrier_bank
+    s2 = dict(mc=4, short=True, block_symbols=1 << 15)
+    return {
+        "DVBS2Receiver": lambda **kw: DVBS2Receiver(**s2, **kw),
+        "DVBS2Stream": lambda **kw: DVBS2Stream(**s2, **kw),
+        "DVBS2BankStream": lambda **kw: DVBS2BankStream(2, **s2, **kw),
+        "build_carrier_bank": lambda **kw: build_carrier_bank(2, **s2, **kw),
+        "DVBSReceiver": lambda **kw: DVBSReceiver(rate="1/2", **kw),
+        "build_dvbs_stream_bank": lambda **kw: build_dvbs_stream_bank(
+            2, rate="1/2", block_samples=1 << 14, **kw),
+        "DVBSBankStream": lambda **kw: DVBSBankStream(
+            2, rate="1/2", block_samples=1 << 14, **kw),
+        "StreamingResampler": lambda **kw: StreamingResampler(4e6, 1e6, **kw),
+        "Channelizer": lambda **kw: Channelizer(4e6, [(0.0, 1e6)], **kw),
+        "viterbi.decode_stream": lambda **kw: viterbi.decode_stream(
+            np.ones((64, 2), np.float32), core=64, wing=8, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "DVBS2Receiver", "DVBS2Stream", "DVBS2BankStream", "build_carrier_bank",
+    "DVBSReceiver", "build_dvbs_stream_bank", "DVBSBankStream",
+    "StreamingResampler", "Channelizer", "viterbi.decode_stream"])
+def test_entry_point_device(name, monkeypatch):
+    """No device named: the card, and RuntimeError when there is none
+    (never the CPU). device="cpu": built on the CPU."""
+    from dvbs_tpu_torch import backend
+    make = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backend.default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make(device=None)
+    assert make(device="cpu") is not None
+
+
+def test_cli_device(tmp_path, monkeypatch):
+    """The CLI's --device defaults to the card too."""
+    from dvbs_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    iq = tmp_path / "x.cf32"
+    iq.write_bytes(b"\0" * 8000)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--iq", str(iq), "--modcod", "4", "--framesize", "short"])
+    assert cli.main(["--iq", str(iq), "--modcod", "4", "--framesize",
+                     "short", "--block-symbols", "32768", "--device",
+                     "cpu"]) == 0
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -237,7 +237,8 @@ def test_bank_step_matches(bank_case, tables_from):
         np_tables = jax_receiver_tables(cfg, block)
     step, example, _ = mesh.build_carrier_bank(
         C, mc=mc, short=True, pilots=True, block_symbols=block, fec="int8",
-        ingest="cs4", stream_outputs=True, np_tables=np_tables)
+        ingest="cs4", stream_outputs=True, np_tables=np_tables,
+        device="cpu")
     assert x.shape == example.shape and x.dtype == example.dtype
     out = {k: v.numpy() for k, v in step(torch.from_numpy(x)).items()}
     assert ref["ldpc_ok"].all() and not ref["bch_bad"].any()
@@ -276,7 +277,7 @@ def test_bank_stream_same_ts(stream_signals):
     kw = dict(mc=MC_STREAM, short=True, pilots=True, block_symbols=block,
               ingest="cs4")
     ref = JaxBankStream(C, **kw)
-    st = DVBS2BankStream(C, fec="int8", **kw)
+    st = DVBS2BankStream(C, fec="int8", device="cpu", **kw)
     need = 2 * block + 3 * 2 * st.F * L + 2 * L
     assert len(sigs[0]) >= need
     want, got = [bytearray(), bytearray()], [bytearray(), bytearray()]
@@ -294,23 +295,27 @@ def test_bank_stream_same_ts(stream_signals):
 
 
 @pytest.mark.parametrize("to_pilots", [True, False])
-def test_auto_modcod_switch(stream_signals, to_pilots):
-    """Every carrier votes for 8PSK 3/4 short: with pilots the stream
-    rebuilds its bank for it inside feed; without pilots the rebuild
-    raises NotImplementedError out of feed (dvbs_tpu switches: its
-    receiver runs pilotless 8PSK; ROADMAP queue 3)."""
-    sigs, _ = stream_signals
+def test_auto_modcod_switch(to_pilots):
+    """Every carrier votes for 8PSK 3/4 short while the bank is set to
+    8PSK 2/3 with pilots: inside feed the stream rebuilds its bank for
+    the voted MODCOD, with pilots or without (the decision-directed
+    track), and goes on to decode the 8PSK 3/4 signal it is fed: each
+    carrier's TS is a byte-exact contiguous run of its own packets."""
+    target = modcod.get_config(14, short=True, pilots=to_pilots)
+    sigs, sents = _signals(target, 12.0, 16)
     block = _block(MC_STREAM)
     st = DVBS2BankStream(C, mc=MC_STREAM, short=True, pilots=True,
-                         block_symbols=block, fec="int8", ingest="cs4")
-    target = modcod.get_config(14, short=True, pilots=to_pilots)
+                         block_symbols=block, fec="int8", ingest="cs4",
+                         device="cpu")
     for v in st._votes:
         v.extend([target.pls_code] * v.maxlen)
-    part = [s[:2 * block] for s in sigs]
-    if not to_pilots:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            st.feed(part)
-        return
-    st.feed(part)
+    got = [bytearray(), bytearray()]
+    _feed(st, sigs, 0, len(sigs[0]), got)
     assert st.cfg.pls_code == target.pls_code
     assert st.step_fn.rx.cfg.pls_code == target.pls_code
+    assert (st.frames_ok >= 8).all(), (st.frames_ok, st.frames_seen)
+    for c in range(C):
+        g = np.frombuffer(bytes(got[c]), np.uint8).reshape(-1, 188)
+        k0 = sents[c].tobytes().find(g[0].tobytes()) // 188
+        np.testing.assert_array_equal(g, sents[c][k0:k0 + len(g)])
+        assert len(g) >= 8 * (target.kbch // 8 // 188)

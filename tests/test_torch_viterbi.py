@@ -114,7 +114,7 @@ def test_segment_and_decode_stream():
     segs_j, n_j = jv.segment_stream(stream, core=1024, wing=64)
     assert n_t == n_j
     np.testing.assert_array_equal(segs_t, segs_j)
-    got = tv.decode_stream(stream, core=1024, wing=64)
+    got = tv.decode_stream(stream, core=1024, wing=64, device="cpu")
     ref = jv.decode_stream(stream, core=1024, wing=64)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, truth[0])
