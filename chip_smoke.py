@@ -16,8 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    [128, 64800] on the LDPC tables B4, B7 and B6 (one fixed sweep on
    random int8 LLRs, and 12 sweeps with early exit on noisy codewords
    near each code's threshold), and at the single-carrier receiver's
-   batches: F = 3 and 8 frames on B4, 3, 5 and 8 on B7 and 7 on B6.
-   hard, n_bad and trials must be equal;
+   batches: F = 3 and 8 frames on B4, 3, 5 and 8 on B7 and 7 on B6;
+   then on every table B1..B11 and C1..C10 (3 frames, two fixed sweeps
+   of random int8 LLRs: every Dmax specialisation, every barrier flag
+   and every padding entry), at F = 1 and 130 frames through
+   decode_calls, and timed at 0, 3, 5, 8 and 10 fixed sweeps. hard, n_bad
+   and trials must be equal;
 4. kernel B (barrel+Farrow resampler) against its plain version at
    C=8 and each bank's symbols per block (552960 for QPSK 1/2; 377920,
    284288 and 227392 for the pilots banks; 262144 for DVB-S) and at
@@ -26,8 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
    bit for bit on every output bit: noisy codewords at the DVB-S bank's
    shape [4096, 704, 2] with every third Y erased (whose segment cores
-   must also equal the bits sent), a ragged [130, 151, 2], and one
-   all-erasure segment;
+   must also equal the bits sent), [4097, 704, 2] (a ragged last CTA),
+   a ragged [130, 151, 2], [8, 2240, 2] (the single-carrier DVB-S
+   receiver's segments), T = 1..5, and one all-erasure segment;
 6. every stage of the resampler probe (csrc/resample_probe.cu: v0..v8,
    dma, rows, rb, barrel, swap, full, split) against its plain version
    at the TPU probes' shape and at the bank's, max abs error 0; then
@@ -73,7 +78,9 @@ runs, each run with the counts set to 0 just before it; bound_ms: the
 larger of the bytes each kernel must move over 3.35 TB/s and its
 operations over the card's rate for their type, from this run's inputs),
 then as its last line {"ok": true, "device": {...}}. Needs one CUDA
-device.
+device. With --kernels it drives no main path but the probe's: it stops
+after phase 6 and the kernels' line, the other kernels' launches 0 (a
+quick check of the kernels alone; no "ok" line).
 """
 import argparse
 import contextlib
@@ -104,16 +111,27 @@ LDPC_CASES = (("B4", 1 / 2, 2.5), ("B7", 3 / 4, 3.0), ("B6", 2 / 3, 2.6))
 # QPSK 1/2 on B4, 5 of 8PSK 3/4 and 8 of 32APSK 3/4 on B7, 7 of 16APSK
 # 2/3 on B6), and 3 and 8 on both B4 and B7
 SMALL_BATCHES = (("B4", (3, 8)), ("B7", (3, 5, 8)), ("B6", (7,)))
-# integer operations per edge and sweep of the layered decoder: pass 1
-# subtracts the message, takes sign and magnitude, masks, compares and
-# updates two minima and their index, and two parities (~11); pass 2
-# selects the minimum, offsets, clamps, signs, damps a sign flip, takes
-# the delta and adds it to the posterior with saturation (~9)
-LDPC_OPS_PER_EDGE = 20
+ALL_TABLES = tuple(f"B{i}" for i in range(1, 12)) + \
+    tuple(f"C{i}" for i in range(1, 11))
+# kernel A timed at these fixed sweep counts (0: the call's set-up alone)
+SWEEP_COUNTS = (0, 3, 5, 8, 10)
+# integer operations per edge and sweep of the layered decoder, as the
+# kernel does them. Pass 1 (7): subtract the message, take the
+# magnitude, two xors for the two running parities, and max, min, min
+# for the two minima (no arg-min is kept). Pass 2 (13): compare the
+# magnitude with the first minimum and select the message's magnitude,
+# form the sign (xor, shift) and apply it (xor, subtract), damp a sign
+# flip (test the old message, xor, test the sign, select), add to the
+# posterior and saturate (min, max). Left out: the two offset-and-clip
+# magnitudes of a layer (6 operations a layer, under 1 an edge), the
+# address arithmetic and the packing of messages four to a word
+LDPC_OPS_PER_EDGE = 7 + 13
 # float operations per trellis step of the radix-8 Viterbi kernel: per
-# 3 steps, 64 states x 8 predecessors x (add, compare, select) plus 64
-# fused branch metrics of 5 adds
-VITERBI_OPS_PER_STEP = (64 * 8 * 3 + 64 * 5) / 3
+# 3 steps, 64 states x 8 predecessors x (add, compare, select) plus 32
+# branch sums of 5 adds (the other 32 are their negations, and the sign
+# rides in the path metric's add); none is a fused multiply-add, so
+# they are counted at F32_ADD_OPS
+VITERBI_OPS_PER_STEP = (64 * 8 * 3 + 32 * 5) / 3
 # the pilots banks: MODCOD, SNR dB, label
 PILOTS_BANKS = ((14, 9.5, "8psk34"), (18, 11.0, "16apsk23"),
                 (24, 14.5, "32apsk34"))
@@ -131,10 +149,11 @@ SLICE = {"qpsk12": (4, False, 5.0, None), "8psk34": (14, False, 11.0, None),
          "8psk34_dummies": (14, False, 11.0, 3)}
 
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores, and integer ALU operations/s (Hopper has
-# half as many INT32 as FP32 lanes, and the 67 TFLOP/s count an FMA as
-# two: 67e12 / 2 / 2)
-HBM_BPS, F32_OPS, I32_OPS = 3.35e12, 67e12, 16.75e12
+# outside the tensor cores, which count a fused multiply-add as two;
+# float32 adds, compares and selects, none of them fused (67e12 / 2);
+# and integer ALU operations/s (Hopper has half as many INT32 as FP32
+# lanes: 67e12 / 2 / 2)
+HBM_BPS, F32_OPS, F32_ADD_OPS, I32_OPS = 3.35e12, 67e12, 33.5e12, 16.75e12
 
 
 def bound(nbytes: float, ops: float, rate: float) -> dict:
@@ -145,19 +164,25 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
                 bound_by="bytes" if tb >= to else "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn() over reps calls, by CUDA events."""
+def cuda_ms(fn, reps: int, batches: int = 1) -> float:
+    """Mean ms per call of fn() over reps calls, by CUDA events; the
+    least such mean of `batches` batches (a kernel shorter than the
+    host's launch reads high whenever the host is held up, and the
+    kernels' checks share the host with the signals' workers)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    best = float("inf")
+    for _ in range(batches):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
 
 
 def cuda_once(fn):
@@ -192,9 +217,12 @@ def phase_build():
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s) -> {build.library_path().name}")
+    # per kernel: its (mangled) name, then registers, shared memory, spills
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            print("  ptxas: " + line.split("'")[1][:70])
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.replace('ptxas info    :', '').strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +343,36 @@ def collect_signals(jobs: dict, t0: float, workers: int) -> dict:
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def noisy_llrs(torch, dev, table: str, rate: float, ebno: float, F: int,
+               rng):
+    """(int8 LLRs [F, N] on the card, the codewords sent) at Eb/N0 dB."""
+    from dvbs_tpu_torch.spec import ldpc_spec
+    from dvbs_tpu_torch.ops import ldpc_kernel
+    code = ldpc_spec.get_code(table)
+    cw = code.encode(rng.integers(0, 2, (F, code.K)).astype(np.uint8))
+    sigma = np.sqrt(1.0 / (2 * rate * 10 ** (ebno / 10)))
+    y = 1.0 - 2.0 * cw.astype(np.float32) + \
+        rng.normal(0, sigma, cw.shape).astype(np.float32)
+    return ldpc_kernel.quantize_llrs(
+        torch.from_numpy(2.0 * y / sigma ** 2).to(dev)), cw
+
+
+def same_decode(torch, label: str, got, ref) -> int:
+    """Raise unless kernel A's (hard, n_bad, trials) equal the plain
+    version's; returns the largest difference (0)."""
+    torch.cuda.synchronize()
+    for name, a, b in zip(("hard", "n_bad", "trials"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"kernel A {label}: {name} differs from the plain version "
+                f"in {int((a != b).sum())} places")
+    return max(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+               for a, b in zip(got, ref))
+
+
 def phase_ldpc(torch, dev):
     """Kernel A against its plain version on each table of LDPC_CASES.
     The kernels row reports B4's noisy case (the headline bank's)."""
-    from dvbs_tpu_torch.spec import ldpc_spec
     from dvbs_tpu_torch import tables
     from dvbs_tpu_torch.ops import ldpc_kernel
     row, errs = None, []
@@ -328,13 +382,7 @@ def phase_ldpc(torch, dev):
         rng = np.random.default_rng(1 + k)
         rand = torch.from_numpy(rng.integers(-25, 26, (B, N))
                                 .astype(np.int8)).to(dev)
-        code = ldpc_spec.get_code(table)
-        cw = code.encode(rng.integers(0, 2, (B, code.K)).astype(np.uint8))
-        sigma = np.sqrt(1.0 / (2 * rate * 10 ** (ebno / 10)))
-        y = 1.0 - 2.0 * cw.astype(np.float32) + \
-            rng.normal(0, sigma, cw.shape).astype(np.float32)
-        noisy = ldpc_kernel.quantize_llrs(
-            torch.from_numpy(2.0 * y / sigma ** 2).to(dev))
+        noisy, cw = noisy_llrs(torch, dev, table, rate, ebno, B, rng)
         for label, llr, n_iters, ee in (
                 ("random, 1 sweep", rand, 1, False),
                 (f"Eb/N0 {ebno} dB, 12 sweeps, early exit", noisy, 12, True)):
@@ -342,15 +390,9 @@ def phase_ldpc(torch, dev):
             # the plain version runs once: the reference and its time
             ref, plain_ms = cuda_once(lambda: ldpc_kernel.decode_plain(
                 llr, kt, n_iters, early_exit=ee))
-            for name, a, b in zip(("hard", "n_bad", "trials"), got, ref):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"kernel A {table} {label}: {name} differs from "
-                        f"the plain version in {int((a != b).sum())} places")
+            errs.append(same_decode(torch, f"{table} {label}", got, ref))
             ms = cuda_ms(lambda: ldpc_kernel.decode_cuda(
-                llr, kt, n_iters, early_exit=ee), 10)
-            err = max(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-                      for a, b in zip(got, ref))
+                llr, kt, n_iters, early_exit=ee), 10, batches=3)
             tr = got[2].cpu().numpy()
             n_ok = int((got[1] == 0).sum())
             if ee:
@@ -361,7 +403,6 @@ def phase_ldpc(torch, dev):
                   f"{tr.min()}..{tr.max()} {np.bincount(tr).tolist()}, "
                   f"{n_ok}/{B} frames clean; kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.1f} ms")
-            errs.append(err)
             if ee and row is None:
                 # bytes: int8 LLRs in, hard bits out, two int32 per
                 # frame. Operations: the sweeps this batch ran (every
@@ -378,33 +419,68 @@ def phase_ldpc(torch, dev):
                       f"x {int(tr.max())} sweeps x {LDPC_OPS_PER_EDGE} int "
                       f"ops = {ops:.3g} ops -> {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']}); bytes {2 * B * N + 8 * B}")
+                # a fixed number of sweeps, no early exit: the time a sweep
+                for F in (B, 3):
+                    ts = [cuda_ms(lambda: ldpc_kernel.decode_cuda(
+                        noisy[:F], kt, n, early_exit=False), 10)
+                        for n in SWEEP_COUNTS]
+                    per = (ts[-1] - ts[1]) / (SWEEP_COUNTS[-1] -
+                                              SWEEP_COUNTS[1])
+                    print(f"kernel A {table} [{F}, {N}] at "
+                          f"{SWEEP_COUNTS} sweeps run, no early exit: "
+                          f"{', '.join(f'{t:.3f}' for t in ts)} ms a call; "
+                          f"{per:.4f} ms for each further sweep")
     # the single-carrier receiver's calls: its F frames as they are
     cases = {table: (rate, ebno) for table, rate, ebno in LDPC_CASES}
     for table, Fs in SMALL_BATCHES:
         rate, ebno = cases[table]
         kt = tables.kernel_tables(table)
-        code = ldpc_spec.get_code(table)
         for F in Fs:
-            rng = np.random.default_rng(10 + F)
-            cw = code.encode(rng.integers(0, 2, (F, code.K)).astype(np.uint8))
-            sigma = np.sqrt(1.0 / (2 * rate * 10 ** (ebno / 10)))
-            y = 1.0 - 2.0 * cw.astype(np.float32) + \
-                rng.normal(0, sigma, cw.shape).astype(np.float32)
-            llr = ldpc_kernel.quantize_llrs(
-                torch.from_numpy(2.0 * y / sigma ** 2).to(dev))
+            llr, _ = noisy_llrs(torch, dev, table, rate, ebno, F,
+                                np.random.default_rng(10 + F))
             got = ldpc_kernel.decode_cuda(llr, kt, 12)
             ref = ldpc_kernel.decode_plain(llr, kt, 12)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("hard", "n_bad", "trials"), got, ref):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"kernel A {table} F={F}: {name} differs from the "
-                        f"plain version in {int((a != b).sum())} places")
+            errs.append(same_decode(torch, f"{table} F={F}", got, ref))
             ms = cuda_ms(lambda: ldpc_kernel.decode_cuda(llr, kt, 12), 10)
             print(f"kernel A {table} [{F}, {kt['N']}] Eb/N0 {ebno} dB, 12 "
                   f"sweeps, early exit: bit-exact; trials "
                   f"{got[2].tolist()}, n_bad {got[1].tolist()}; kernel "
                   f"{ms:.3f} ms")
+    # every table: each Dmax specialisation, barrier flag and padding
+    # entry. Two fixed sweeps, so that the second meets messages
+    t0 = time.perf_counter()
+    for k, table in enumerate(ALL_TABLES):
+        kt = tables.kernel_tables(table)
+        llr = torch.from_numpy(np.random.default_rng(30 + k).integers(
+            -40, 41, (3, kt["N"])).astype(np.int8)).to(dev)
+        ref = ldpc_kernel.decode_plain(llr, kt, 2, early_exit=False)
+        # random LLRs never come clean, so the early exit's cooperative
+        # launch must give the same
+        for ee in (False, True):
+            got = ldpc_kernel.decode_cuda(llr, kt, 2, early_exit=ee)
+            errs.append(same_decode(
+                torch, f"{table} random, 2 sweeps, early_exit={ee}", got,
+                ref))
+    print(f"kernel A on all {len(ALL_TABLES)} tables ({', '.join(ALL_TABLES)})"
+          f" [3, N], random int8, 2 sweeps, both launch kinds: bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # one frame, and more than a call holds (decode_calls: 128 + 2), a
+    # decibel above the threshold so that the plain version ends early
+    table, rate, ebno = LDPC_CASES[0]
+    kt = tables.kernel_tables(table)
+    for F in (1, ldpc_kernel.CALL_FRAMES + 2):
+        llr, cw = noisy_llrs(torch, dev, table, rate, ebno + 1.0, F,
+                             np.random.default_rng(50 + F))
+        got = ldpc_kernel.decode_calls(llr, table, 12)
+        calls = [ldpc_kernel.decode_plain(
+            llr[lo:lo + ldpc_kernel.CALL_FRAMES], kt, 12)
+            for lo in range(0, F, ldpc_kernel.CALL_FRAMES)]
+        ref = tuple(torch.cat([c[i] for c in calls]) for i in range(3))
+        errs.append(same_decode(torch, f"{table} F={F}", got, ref))
+        assert (got[0].cpu().numpy() == cw).all(), (table, F)
+        print(f"kernel A {table} [{F}, {kt['N']}] Eb/N0 {ebno + 1.0} dB "
+              f"through decode_calls ({len(calls)} calls): bit-exact; "
+              f"trials {int(got[2].min())}..{int(got[2].max())}")
     row["max_abs_err"] = max(errs)
     return row
 
@@ -436,7 +512,8 @@ def phase_resample(torch, dev):
         if not err <= RESAMPLE_TOL:
             raise AssertionError(f"kernel B [{C}, {S}]: max abs error {err} "
                                  f"> {RESAMPLE_TOL}")
-        ms = cuda_ms(lambda: rk.resample_cuda(y, u, rb, bias, coef, S), 20)
+        ms = cuda_ms(lambda: rk.resample_cuda(y, u, rb, bias, coef, S), 20,
+                     batches=3)
         plain_ms = cuda_ms(lambda: rk.resample_plain(y, u, rb, bias, coef,
                                                      S), 3)
         print(f"kernel B [{C}, {S}] (bias {bias}): max abs err {err:.3g} "
@@ -476,12 +553,21 @@ def phase_viterbi(torch, dev):
     bank[:, ::3, 1] = 0.0                # depuncture-style erasures
     ragged = rng.normal(0, 1.5, (130, 151, 2))
     ragged[:, ::3, 1] = 0.0
+    more = np.concatenate([bank, bank[:1]])       # a ragged last CTA
+    long = rng.normal(0, 1.5, (8, 2240, 2))
+    long[:, ::3, 1] = 0.0
+    longer = rng.normal(0, 1.5, (3, 4000, 2))
+    longer[:, ::3, 1] = 0.0
     cases = (("noisy codewords [4096, 704, 2], every third Y erased", bank),
+             ("[4097, 704, 2]", more),
              ("ragged [130, 151, 2]", ragged),
-             ("all-erasure [1, 704, 2]", np.zeros((1, T, 2))))
+             ("the single-carrier segments [8, 2240, 2]", long),
+             ("one segment a CTA [3, 4000, 2]", longer),
+             ("all-erasure [1, 704, 2]", np.zeros((1, T, 2)))) + tuple(
+                 (f"[130, {t}, 2]", ragged[:, :t]) for t in range(1, 6))
     err = 0
     for label, x in cases:
-        xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
         got = vk.decode_cuda(xt)
         ref = vk.decode_plain(xt)
         torch.cuda.synchronize()
@@ -491,14 +577,15 @@ def phase_viterbi(torch, dev):
                 f"from the plain version")
         err = max(err, int((got.to(torch.int32) - ref.to(torch.int32))
                            .abs().max()))
-        print(f"kernel C {label}: bit-exact on all {got.numel()} bits")
+        print(f"kernel C {label}: bit-exact on all {got.numel()} bits; "
+              f"kernel {cuda_ms(lambda: vk.decode_cuda(xt), 5):.3f} ms")
     big = torch.from_numpy(bank.astype(np.float32)).to(dev)
     core = vk.decode_cuda(big)[:, wing:T - wing].cpu().numpy()
     n_bad = int((core != truth[:, wing:T - wing]).sum())
     if n_bad:
         raise AssertionError(f"kernel C: {n_bad} core bits differ from the "
                              f"bits sent")
-    ms = cuda_ms(lambda: vk.decode_cuda(big), 20)
+    ms = cuda_ms(lambda: vk.decode_cuda(big), 20, batches=3)
     plain_ms = cuda_ms(lambda: vk.decode_plain(big), 2)
     print(f"kernel C [{B}, {T}, 2]: cores equal the bits sent; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
@@ -508,10 +595,11 @@ def phase_viterbi(torch, dev):
                source="dvbs_tpu_torch/csrc/viterbi_acs.cu",
                replaces="dvbs_tpu/ops/viterbi_pallas.py:247",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-               **bound(nbytes, ops, F32_OPS))
+               **bound(nbytes, ops, F32_ADD_OPS))
     print(f"kernel C bound: {nbytes} bytes -> {nbytes / HBM_BPS * 1e3:.4f} "
-          f"ms; {B} x {T} steps x {VITERBI_OPS_PER_STEP:.0f} flops = "
-          f"{ops:.3g} -> {ops / F32_OPS * 1e3:.4f} ms ({row['bound_by']})")
+          f"ms; {B} x {T} steps x {VITERBI_OPS_PER_STEP:.0f} adds, compares "
+          f"and selects = {ops:.3g} at {F32_ADD_OPS:.3g} a second -> "
+          f"{ops / F32_ADD_OPS * 1e3:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -997,6 +1085,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="TRACE.json",
                     help="profile the QPSK, DVB-S and 32APSK bank steps; "
                     "write the first trace here and the others beside it")
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after the kernels' checks (phases 1 to 6)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1012,6 +1102,26 @@ def main() -> int:
     smi = phase_card(torch)
     trace = args.profile[:-5] if args.profile and \
         args.profile.endswith(".json") else args.profile
+    runs = []                       # launch counts of every main-path run
+
+    def kernel_phases() -> list:
+        phase_build()
+        stamp("build")
+        rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
+                phase_viterbi(torch, dev)]
+        stamp("kernels A, B, C against their plain versions")
+        probe_row, probe_launches = phase_probe(torch, dev)
+        runs.append(probe_launches)
+        stamp("probe stages")
+        return rows + [probe_row]
+
+    def kernels_line(rows) -> None:
+        for r in rows:
+            r["launches"] = sum(run[r["name"]] for run in runs)
+        print(json.dumps({"kernels": rows}))
+    if args.kernels:
+        kernels_line(kernel_phases())
+        return 0
     # the workers make every phase's signals while this process builds
     # the kernels and holds each against its plain version
     workers = max(1, min(8, len(os.sched_getaffinity(0)) - 1))
@@ -1020,20 +1130,12 @@ def main() -> int:
         t0 = time.perf_counter()
         jobs = start_signals(pool)
         try:
-            phase_build()
-            stamp("build")
-            rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
-                    phase_viterbi(torch, dev)]
-            stamp("kernels A, B, C against their plain versions")
-            probe_row, probe_launches = phase_probe(torch, dev)
-            rows.append(probe_row)
-            stamp("probe stages")
+            rows = kernel_phases()
             sigs = collect_signals(jobs, t0, workers)
         except BaseException:
             pool.shutdown(wait=False, cancel_futures=True)
             raise
     stamp("signals")
-    runs = [probe_launches]         # launch counts of every main-path run
     launches, step = phase_main_path(torch, dev, smi, *sigs["s2"])
     runs.append(launches)
     stamp("DVB-S2 QPSK 1/2 bank")
@@ -1056,9 +1158,7 @@ def main() -> int:
     stamp("pilots banks")
     runs += phase_slice(torch, sigs, trace if args.profile else None)
     stamp("single-carrier slice")
-    for r in rows:
-        r["launches"] = sum(run[r["name"]] for run in runs)
-    print(json.dumps({"kernels": rows}))
+    kernels_line(rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; every pointer and the stream are void*
 SIGNATURES = {
-    "ldpc_layered_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P],
+    "ldpc_layered_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P],
     "resample_farrow": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "viterbi_acs": [_P, _I, _I, _P, _P],
     "resample_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -158,11 +158,13 @@ def run_fec(program: SymbolProgram, llrs: torch.Tensor, n_iters: int,
 
 
 def device_kernel_tables(program: SymbolProgram) -> dict:
-    """The int8 decoder's schedule with its tables already on the
-    program's device."""
+    """The int8 decoder's schedule with its tables, and the packed
+    schedule the CUDA kernel reads, already on the program's device."""
     kt = dict(tables.kernel_tables(program.cfg.ldpc_table))
     kt.update(g_tab=program.ldpc_g, s_tab=program.ldpc_s,
-              f_tab=program.ldpc_f)
+              f_tab=program.ldpc_f,
+              sched=tables.pack_schedule(program.ldpc_g, program.ldpc_s,
+                                         program.ldpc_f).contiguous())
     return kt
 
 

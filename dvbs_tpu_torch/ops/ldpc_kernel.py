@@ -15,9 +15,29 @@ int32):
 - with early_exit, sweeps stop once every frame of the call has had a
   clean sweep; frames that converged earlier are swept on with the rest.
 
-On a CUDA tensor csrc/ldpc_layered.cu runs one launch per sweep; on a
-CPU tensor `decode_plain` runs the same arithmetic vectorised over
-frames and rows with Python loops over layers and entries.
+On a CUDA tensor csrc/ldpc_layered.cu runs, one block a frame, one
+thread a circulant row, one launch a call; on a CPU tensor
+`decode_plain` runs the same arithmetic vectorised over frames and rows
+with Python loops over layers and entries.
+
+What bounds the kernel on an H100 is the integer instructions a thread
+issues per edge (the card has half as many INT32 as FP32 lanes, and a
+block of 12 warps has an SM to itself, so a sweep costs the same at 3
+frames as at 128), and before that the chain of dependent steps and
+barriers of a layer; the bytes take microseconds. So one launch runs a
+whole call (LLRs in codeword order in, hard bits out, the posterior in
+shared memory throughout, the blocks agreeing on the early exit through
+one counter: a cooperative launch); the kernel is compiled per entry
+count Dmax and unrolls both passes (every load of a layer in flight at
+once, each message read once); messages lie four to a 32-bit word
+([B, q, ceil(Dmax/4), 360] int32, this module's scratch) and the next
+layer's words are loaded ahead; the schedule sits in shared memory
+(`tables.pack_schedule`, one word an entry); and it synchronises only
+where two rows can meet at one address: before a layer that carries
+`tables.F_BAR`, and around an entry that carries `tables.F_SYNC`. It
+forms no arg-min (an entry takes the second minimum where its magnitude
+equals the first), which gives the same values. `decode_plain` stays
+sequential and ignores both flags; the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -42,8 +62,9 @@ def quantize_llrs(llr: torch.Tensor) -> torch.Tensor:
 def decode(llr_i8: torch.Tensor, table: str, n_iters: int = 16,
            beta: int = 1, early_exit: bool = True, kt: dict | None = None):
     """One decode call over B frames (see the module docstring). kt: the
-    table's schedule (tables.kernel_tables); pass a dict whose g/s/f
-    tables already lie on the device to save the upload."""
+    table's schedule (tables.kernel_tables); give it a "sched" entry,
+    tables.pack_schedule of its tables as an int32 tensor on the device,
+    to save the kernel's wrapper the upload."""
     kt = kt or tables.kernel_tables(table)
     if backend.use_kernel(llr_i8):
         return decode_cuda(llr_i8, kt, n_iters, beta, early_exit)
@@ -138,35 +159,43 @@ def decode_plain(llr_i8: torch.Tensor, kt: dict, n_iters: int,
 
 def decode_cuda(llr_i8: torch.Tensor, kt: dict, n_iters: int,
                 beta: int = 1, early_exit: bool = True):
-    """Launch csrc/ldpc_layered.cu (kernel A's port) once per sweep. The
-    launches are enqueued back to back; the early exit is decided on the
-    device, so the host never waits between sweeps."""
+    """Launch csrc/ldpc_layered.cu (kernel A's port): one launch runs the
+    call's sweeps, LLRs in codeword order in, hard bits out. With
+    early_exit the blocks agree after every sweep on whether a frame is
+    still open, which needs every block resident (a cooperative launch):
+    an H100 holds at least a block on each of its 132 SMs, so the
+    CALL_FRAMES of a call always fit; the launch itself refuses more
+    frames than the card can hold at once (a RuntimeError), and
+    decode_calls cuts a batch into calls."""
     from ..kernels import build
     G, q, Dmax = kt["G"], kt["q"], kt["Dmax"]
     B, N = llr_i8.shape
     dev = llr_i8.device
-    NG = G + q
     backend.check(llr_i8, "llr_i8", torch.int8, (B, N), dev)
-    tabs = []
-    for k in ("g_tab", "s_tab", "f_tab"):
-        t = kt[k]
-        t = t if torch.is_tensor(t) else torch.from_numpy(t)
-        t = t.to(device=dev, dtype=torch.int32).contiguous()
-        backend.check(t, k, torch.int32, (q, Dmax), dev)
-        tabs.append(t)
-    post = llr_to_post(llr_i8, G, q).permute(2, 0, 1).contiguous()
-    backend.check(post, "post", torch.int8, (B, NG, LANES), dev)
-    msgs = torch.zeros((B, q, Dmax, LANES), dtype=torch.int8, device=dev)
-    trials = torch.full((B,), n_iters, dtype=torch.int32, device=dev)
-    done = torch.zeros(B, dtype=torch.int32, device=dev)
-    n_bad = torch.ones(B, dtype=torch.int32, device=dev)
-    open_after = torch.zeros(n_iters, dtype=torch.int32, device=dev)
-    for it in range(n_iters):
-        build.launch("ldpc_layered_sweep", post.data_ptr(), msgs.data_ptr(),
-                     tabs[0].data_ptr(), tabs[1].data_ptr(),
-                     tabs[2].data_ptr(), B, NG, q, Dmax, beta, it,
-                     int(early_exit), trials.data_ptr(), done.data_ptr(),
-                     n_bad.data_ptr(), open_after.data_ptr())
-        backend.LAUNCHES["ldpc_layered"] += 1
-    hard = post_to_hard(post.permute(1, 2, 0), G, q)
+    if N != (G + q) * LANES:
+        raise ValueError(f"llr_i8: {N} bits a frame, the table has "
+                         f"{(G + q) * LANES}")
+    if llr_i8.data_ptr() % 8:               # the kernel loads 8 bytes at once
+        llr_i8 = llr_i8.clone()
+    sched = kt.get("sched")
+    if sched is None:
+        sched = torch.from_numpy(tables.pack_schedule(
+            kt["g_tab"], kt["s_tab"], kt["f_tab"])).to(dev)
+    backend.check(sched, "sched", torch.int32, (q, Dmax), dev)
+    hard = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    # the kernel writes every element of trials and n_bad
+    trials = torch.empty(B, dtype=torch.int32, device=dev)
+    n_bad = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return hard, n_bad, trials
+    # scratch: four int8 messages of a row to a word, entry e in byte
+    # e % 4; sweep 0 reads none of it
+    msgs = torch.empty((B, q, -(-Dmax // 4), LANES), dtype=torch.int32,
+                       device=dev)
+    sweep_sync = torch.zeros(max(n_iters, 1), dtype=torch.int32, device=dev)
+    build.launch("ldpc_layered_decode", llr_i8.data_ptr(), hard.data_ptr(),
+                 msgs.data_ptr(), sched.data_ptr(), B, G, q, Dmax, beta,
+                 n_iters, int(early_exit), trials.data_ptr(),
+                 n_bad.data_ptr(), sweep_sync.data_ptr())
+    backend.LAUNCHES["ldpc_layered"] += 1
     return hard, n_bad, trials

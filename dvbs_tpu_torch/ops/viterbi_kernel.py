@@ -23,9 +23,25 @@ ported; its decoded bits are. Both versions here follow these rules:
 Every sum is taken in the same order on both sides (multiplying by +-1
 is exact), so the kernel and the plain version agree bit for bit, wings
 included. On segment cores both equal ops/viterbi.decode_segments.
+
+What bounds the CUDA kernel on an H100 is instruction issue and, close
+behind, the SM's shared-memory pipe, not bytes. So it forms each step's
+branch sums once (`branch_sum_table`: a step has 64 distinct sums, one
+per sign pattern of its 6 LLRs, and the pattern with every sign flipped
+has exactly the negated sum, so 32 are formed, one a lane, a step ahead
+of their use), decodes a segment per warp (a lane holds two states, ns
+and ns ^ 40, that share their eight predecessors and, the branch into
+ns ^ 40 from input j being the complement of the branch into ns from
+j ^ 4, their eight table reads; path metrics pass through a
+warp-private strip of shared memory, one `__syncwarp` a step and no
+CTA-wide barrier), packs the decisions a nibble a state, and keeps four
+segments a CTA so that one segment's serial traceback runs beside the
+others' forward passes (one a CTA only where four do not fit its shared
+memory, T beyond about 3,000 pairs).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import backend, tables
@@ -34,17 +50,57 @@ from .frontend import bf16_round
 K = 3                                   # trellis steps per ACS step
 R = 1 << K
 N_STATES = tables.N_STATES
-# shared memory a CTA may use on Hopper (227 KB); the kernel keeps the
-# decisions (nsteps*64 B), the bf16-rounded LLRs (6*nsteps floats), the
-# bits (3*nsteps B) and two path-metric rows (512 B) there
+# shared memory a CTA may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
+# a warp's share (csrc/viterbi_acs.cu): two strips of 64 path metrics
+# with a 4-float gap, two tables of 32 branch sums, and per step 6 LLRs
+# as float32 and 32 bytes of decisions (a nibble a state); the traced
+# states reuse the LLRs' room. Rounded up to 16 bytes.
+WARP_FIXED = (2 * 68 + 2 * 32) * 4
+STEP_BYTES = 6 * 4 + 32
+CTA_SEGMENTS = 4        # the kernel's CTA, where four segments fit it
 
 
-def smem_bytes(T: int) -> int:
-    """Shared memory the CUDA kernel needs for segments of T pairs."""
+def smem_bytes(T: int, segments: int = 1) -> int:
+    """Shared memory a CTA of the CUDA kernel needs for `segments`
+    segments (a warp each) of T pairs."""
     nsteps = -(-T // K)
-    return 2 * N_STATES * 4 + 6 * nsteps * 4 + nsteps * N_STATES \
-        + K * nsteps
+    return segments * ((WARP_FIXED + STEP_BYTES * nsteps + 15) & ~15)
+
+
+def pattern_table() -> np.ndarray:
+    """[64, 8] int: the 6-bit sign pattern of branch (ns, j), bit q set
+    where tables.trellis_k(3)'s sign[ns, j, q] is -1. The CUDA kernel
+    derives the same from G1 and G2 (branch_pattern)."""
+    sign = tables.trellis_k(K)[0]
+    return ((sign < 0) << np.arange(2 * K)).sum(axis=2)
+
+
+def branch_sum_table(r: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's shared branch sums, in PyTorch: r [..., 6]
+    float32 -> [..., 32], entry p the sum over q = 0..5 in order of
+    (-r[q] if bit q of p else r[q]), each add rounded alone (bit 5 of p
+    is clear: r[5] enters with +). The patterns 32..63 are not formed:
+    pattern p ^ 63 has every sign flipped and exactly the negated sum,
+    see branch_metrics_shared."""
+    p = torch.arange(32, device=r.device)
+    sg = [1.0 - 2.0 * ((p >> q) & 1).to(torch.float32) for q in range(5)]
+    acc = r[..., None, 0] * sg[0]
+    for q in range(1, 5):
+        acc = acc + r[..., None, q] * sg[q]
+    return acc + r[..., None, 5]
+
+
+def branch_metrics_shared(r: torch.Tensor) -> torch.Tensor:
+    """Every branch metric [..., 64, 8] of steps r [..., 6] the way the
+    CUDA kernel reads them: branch (ns, j) with pattern p takes
+    table[p] when bit 5 of p is clear, else -table[p ^ 63]."""
+    pat = torch.from_numpy(pattern_table()).to(r.device)
+    tab = branch_sum_table(r)
+    flip = (pat & 32) != 0
+    idx = torch.where(flip, pat ^ 63, pat).reshape(-1)
+    bm = tab[..., idx].reshape(*r.shape[:-1], N_STATES, R)
+    return torch.where(flip, -bm, bm)
 
 
 def decode_segments(llrs: torch.Tensor) -> torch.Tensor:
@@ -100,18 +156,20 @@ def decode_plain(llrs: torch.Tensor) -> torch.Tensor:
 
 
 def decode_cuda(llrs: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/viterbi_acs.cu (kernel C's port): one CTA per
-    segment."""
+    """Launch csrc/viterbi_acs.cu (kernel C's port): a warp per segment,
+    CTA_SEGMENTS segments per CTA (one where four do not fit)."""
     from ..kernels import build
     B, T = llrs.shape[0], llrs.shape[1]
     backend.check(llrs, "llrs", torch.float32, (B, T, 2), llrs.device)
-    need = smem_bytes(T)
-    if need > SMEM_LIMIT:
+    if smem_bytes(T) > SMEM_LIMIT:
         raise ValueError(
-            f"viterbi_acs: segments of T={T} pairs need {need} bytes of "
-            f"shared memory per CTA, more than the {SMEM_LIMIT} a Hopper "
+            f"viterbi_acs: a segment of T={T} pairs needs {smem_bytes(T)} "
+            f"bytes of shared memory, more than the {SMEM_LIMIT} a Hopper "
             f"CTA may use; cut the segments shorter")
+    if llrs.data_ptr() % 8:                 # the kernel loads (X, Y) pairs
+        llrs = llrs.clone()
     bits = torch.empty((B, T), dtype=torch.uint8, device=llrs.device)
-    build.launch("viterbi_acs", llrs.data_ptr(), B, T, bits.data_ptr())
-    backend.LAUNCHES["viterbi_acs"] += 1
+    if B:
+        build.launch("viterbi_acs", llrs.data_ptr(), B, T, bits.data_ptr())
+        backend.LAUNCHES["viterbi_acs"] += 1
     return bits

@@ -35,6 +35,8 @@ MAX_SCO = 250e-6           # frontend._MAX_SCO
 
 F_VALID = 1                # ldpc_pallas.F_VALID
 F_MASK0 = 2                # ldpc_pallas.F_MASK0
+F_SYNC = 4                 # the port's own, both: see kernel_tables
+F_BAR = 8
 
 # (sample_scale, point_scale, llr_scale) per constellation (demap._SCALES)
 DEMAP_SCALES = {
@@ -236,7 +238,19 @@ def kernel_tables(table: str) -> dict:
     (ldpc_pallas.kernel_tables): g_tab, s_tab, f_tab int32 [q, Dmax].
     Entry e of layer r reads group g rolled by s; the last two entries
     are the parity groups, the wrap edge of layer 0 carries F_MASK0,
-    and padding entries have f = 0."""
+    and padding entries have f = 0.
+
+    The port adds two flags for its CUDA kernel, whose threads (one a
+    circulant row) share the posterior and meet at one address only
+    where a group is touched at two different shifts; at one shift the
+    same thread returns to its own address. F_SYNC marks every valid
+    entry whose group an earlier entry of the same layer already has:
+    the kernel orders such updates with barriers. F_BAR, on entry 0 of
+    a layer, says that the layer must start behind a barrier: one of its
+    groups was touched at another shift since the last barrier (a layer
+    with F_SYNC entries counts as touched after its last barrier, which
+    is more than needed and safe). A sweep begins behind a barrier
+    anyway. The plain version, strictly sequential, ignores both."""
     t = qc_tables(table)
     G, q = t["G"], t["q"]
     rows = []
@@ -252,11 +266,33 @@ def kernel_tables(table: str) -> dict:
     g_tab = np.zeros((q, Dmax), np.int32)
     s_tab = np.zeros((q, Dmax), np.int32)
     f_tab = np.zeros((q, Dmax), np.int32)
+    touched: dict = {}              # group -> shifts since the last barrier
     for r, ents in enumerate(rows):
+        seen = set()
         for e, (g, s, f) in enumerate(ents):
-            g_tab[r, e], s_tab[r, e], f_tab[r, e] = g, s, f
+            g_tab[r, e], s_tab[r, e] = g, s
+            f_tab[r, e] = f | (F_SYNC if g in seen else 0)
+            seen.add(g)
+        if r and any(touched.get(g, {s}) != {s} for g, s, _ in ents):
+            f_tab[r, 0] |= F_BAR
+            touched = {}
+        if len(seen) < len(ents):   # the layer's own barriers
+            touched = {}
+        for g, s, _ in ents:
+            touched.setdefault(g, set()).add(s)
     return dict(G=G, q=q, Dmax=Dmax, g_tab=g_tab, s_tab=s_tab, f_tab=f_tab,
                 N=t["N"], K=t["K"])
+
+
+def pack_schedule(g_tab, s_tab, f_tab):
+    """The schedule as the CUDA kernel takes it, one int32 an entry:
+    g (< 256) | s (< 512) << 8 | flags << 17. Arrays or tensors."""
+    return g_tab | (s_tab << 8) | (f_tab << 17)
+
+
+def unpack_schedule(word):
+    """(g, s, flags) of pack_schedule's words."""
+    return word & 0xFF, (word >> 8) & 0x1FF, word >> 17
 
 
 # ---------------------------------------------------------------------------

@@ -142,11 +142,30 @@ def test_ldpc_kernel_pilots_tables(dev, table, rate, ebno):
     assert (got[0].cpu().numpy() == cw).all()
 
 
+ALL_TABLES = [f"B{i}" for i in range(1, 12)] + [f"C{i}" for i in range(1, 11)]
+
+
+@pytest.mark.parametrize("table", ALL_TABLES)
+def test_ldpc_kernel_every_table(dev, table):
+    """Every Dmax specialisation, barrier flag and padding entry: three
+    frames of random int8 LLRs, two fixed sweeps (the second meets
+    messages), and three sweeps through the early exit's agreement."""
+    kt = tables.kernel_tables(table)
+    rng = np.random.default_rng(30 + ALL_TABLES.index(table))
+    x = torch.from_numpy(rng.integers(-40, 41, (3, kt["N"]))
+                         .astype(np.int8)).to(dev)
+    for n_iters, ee in ((2, False), (3, True)):
+        got = ldpc_kernel.decode_cuda(x, kt, n_iters, early_exit=ee)
+        ref = ldpc_kernel.decode_plain(x, kt, n_iters, early_exit=ee)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
 def test_dispatch_counts_launches_and_checks_inputs(dev, c4_llrs):
     backend.reset_launches()
     ldpc_kernel.decode(c4_llrs[:4].to(dev), "C4", n_iters=3,
                        early_exit=False)
-    assert backend.LAUNCHES["ldpc_layered"] == 3
+    assert backend.LAUNCHES["ldpc_layered"] == 1      # one launch a call
     with pytest.raises(TypeError):
         ldpc_kernel.decode_cuda(c4_llrs[:4].to(dev, torch.int16),
                                 tables.kernel_tables("C4"), 1)
@@ -209,11 +228,22 @@ def test_small_pilots_bank_on_card_matches_cpu(dev):
     assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
 
 
+VITERBI_SHAPES = {"noisy": (256, 704), "ragged": (130, 151),
+                  "ragged_cta": (4097, 704), "long": (8, 2240),
+                  "one_a_cta": (3, 4000),
+                  **{f"T{t}": (130, t) for t in range(1, 6)}}
+
+
 def _viterbi_case(name):
-    rng = np.random.default_rng({"noisy": 3, "ragged": 4, "erased": 0}[name])
+    """noisy and ragged as before; ragged_cta leaves the last CTA one
+    segment of four, long is the single-carrier DVB-S receiver's segment
+    (core 2048 + 2 x 96), one_a_cta is longer than four segments a CTA
+    can be, T1..T5 end inside the first ACS steps."""
+    rng = np.random.default_rng({"noisy": 3, "ragged": 4, "erased": 0}
+                                .get(name, 5))
     if name == "erased":
         return np.zeros((1, 704, 2), np.float32)
-    B, T = (256, 704) if name == "noisy" else (130, 151)
+    B, T = VITERBI_SHAPES[name]
     x = rng.normal(0, 1.5, (B, T, 2))
     if name == "noisy":
         x += 2.0 * (1 - 2 * rng.integers(0, 2, (B, T, 2)))
@@ -221,7 +251,8 @@ def _viterbi_case(name):
     return x.astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["noisy", "ragged", "erased"])
+@pytest.mark.parametrize("name", ["noisy", "ragged", "erased", "ragged_cta",
+                                  "long", "one_a_cta", "T1", "T2", "T3", "T4", "T5"])
 def test_viterbi_kernel_matches_plain(dev, name):
     x = torch.from_numpy(_viterbi_case(name)).to(dev)
     backend.reset_launches()
@@ -232,6 +263,11 @@ def test_viterbi_kernel_matches_plain(dev, name):
     assert torch.equal(got, ref)
     with pytest.raises(TypeError):
         vk.decode_cuda(x.to(torch.float16))
+
+
+def test_viterbi_kernel_refuses_a_segment_too_long(dev):
+    with pytest.raises(ValueError):
+        vk.decode_cuda(torch.zeros((1, 1 << 15, 2), device=dev))
 
 
 def test_dvbs_bank_step_on_card_matches_cpu(dev):
@@ -311,6 +347,23 @@ def test_ldpc_kernel_any_frame_count(dev, c4_llrs, F):
         assert torch.equal(g.cpu(), r)
 
 
+def test_ldpc_kernel_more_frames_than_a_call(dev, c4_llrs):
+    """One call of 130 short frames with early exit: several blocks
+    share an SM, so the cooperative launch holds them all; a call the
+    card cannot hold at once is refused by the launch, not by a hang."""
+    kt = tables.kernel_tables("C4")
+    x = torch.cat([c4_llrs, c4_llrs])[:130].to(dev)
+    got = ldpc_kernel.decode_cuda(x, kt, 12)
+    ref = ldpc_kernel.decode_plain(x, kt, 12)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    kt = tables.kernel_tables("B4")
+    with pytest.raises(RuntimeError):
+        ldpc_kernel.decode_cuda(
+            torch.zeros((400, kt["N"]), dtype=torch.int8, device=dev), kt, 2)
+    torch.cuda.synchronize()
+
+
 def test_receiver_and_stream_on_the_card(dev):
     """No device named: the card. Pilotless 8PSK 2/3 short frames."""
     assert backend.default_device().type == "cuda"
@@ -327,7 +380,7 @@ def test_receiver_and_stream_on_the_card(dev):
     assert rx.device.type == "cuda"
     backend.reset_launches()
     got = rx.process_symbols_block(y[:2 * B])
-    assert backend.LAUNCHES["ldpc_layered"] == rx.pass1_iters
+    assert backend.LAUNCHES["ldpc_layered"] == 1      # no escalation
     assert backend.LAUNCHES["resample_farrow"] == 1
     ref = DVBS2Receiver(device="cpu", **kw).process_symbols_block(y[:2 * B])
     assert ref.frame_ok.all()

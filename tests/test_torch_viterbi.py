@@ -101,8 +101,18 @@ def test_kernel_c_all_erasures():
 
 
 def test_kernel_c_shared_memory_budget():
-    assert vk.smem_bytes(704) == 512 + 235 * (24 + 64 + 3)
-    assert vk.smem_bytes(2240) <= vk.SMEM_LIMIT
+    """A warp's share: two 68-float strips, two 32-float tables, and per
+    step 24 bytes of LLRs and 32 of decisions, rounded up to 16 bytes;
+    four segments of the bank's 704 pairs a CTA, four such CTAs an SM
+    (228 KB, of which each resident CTA reserves 1 KB); four of the
+    single-carrier receiver's 2240 pairs fit a CTA too."""
+    assert vk.smem_bytes(704) == -(-(800 + 235 * (24 + 32)) // 16) * 16
+    assert vk.CTA_SEGMENTS == 4
+    assert vk.smem_bytes(704, 4) == 4 * vk.smem_bytes(704)
+    assert 4 * (vk.smem_bytes(704, 4) + 1024) <= 228 * 1024
+    assert vk.smem_bytes(2240, 4) <= vk.SMEM_LIMIT
+    assert vk.smem_bytes(4000, 4) > vk.SMEM_LIMIT >= vk.smem_bytes(4000)
+    assert vk.smem_bytes(1 << 20) > vk.SMEM_LIMIT
 
 
 def test_segment_and_decode_stream():
