@@ -24,15 +24,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    and trials must be equal;
 4. kernel B (barrel+Farrow resampler) against its plain version at
    C=8 and each bank's symbols per block (552960 for QPSK 1/2; 377920,
-   284288 and 227392 for the pilots banks; 262144 for DVB-S) and at
-   [1, 131072], the single-carrier block, with drifting positions of
-   both signs: max abs error <= 1e-5;
+   284288 and 227392 for the pilots banks; 262144 for DVB-S; 65536 for
+   the first-block DVB-S bank) and at [1, 131072], the single-carrier
+   block, with drifting positions of both signs: max abs error <= 1e-5,
+   each timed against its bound;
 5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
    bit for bit on every output bit: noisy codewords at the DVB-S bank's
    shape [4096, 704, 2] with every third Y erased (whose segment cores
    must also equal the bits sent), [4097, 704, 2] (a ragged last CTA),
-   a ragged [130, 151, 2], [8, 2240, 2] (the single-carrier DVB-S
-   receiver's segments), T = 1..5, and one all-erasure segment;
+   a ragged [130, 151, 2], the single-carrier DVB-S receiver's segments
+   [8, 2240, 2] and its blocks at rates 1/2 and 7/8, [64, 2240, 2] and
+   [112, 2240, 2], the first-block bank's [1024, 704, 2] (these three
+   timed against their bounds), T = 1..5, and one all-erasure segment;
 6. every stage of the resampler probe (csrc/resample_probe.cu: v0..v8,
    dma, rows, rb, barrel, swap, full, split) against its plain version
    at the TPU probes' shape and at the bank's, max abs error 0; then
@@ -65,13 +68,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    gap), and kernels A and B must have been launched (B alone with
    `--fec xla`). For each configuration one block is then timed: ms per
    block, launches of kernels A and B per block, and dd_phase_track's
-   share.
+   share;
+11. the single-carrier DVB-S receiver, at block_symbols 2^17 and >= 6
+   blocks: the port's cli.main in-process on a cf32 file, default
+   device, `--mode s` without `--rate`, one carrier for each code rate
+   (1/2, 2/3, 3/4, 5/6, 7/8). The rate found must be the rate sent, every
+   block's re-encode BER < 0.05 with the carrier locked at the end, the
+   TS one byte-exact contiguous run of the packets sent, and kernels B
+   and C launched (C once a locked block). Then rate 1/2 in two runs
+   joined by a `--state-file`, equal to the uninterrupted run; and for
+   each rate one locked block timed (min and mean of 3, host clock
+   around process_block ending in a synchronise) with its count of
+   CUDA kernels and kernel C's share from a torch.profiler pass;
+12. the first-block DVB-S bank: build_dvbs_bank with the DVB-S bank's 8
+   carriers (rate 1/2, cs4), 2^17 samples, one step: every carrier's
+   re-encode BER < 0.02, its bits through the host tail one byte-exact
+   contiguous run of its own packets, kernels B and C launched; then
+   the step is timed with CUDA events.
 
 With --profile TRACE.json, a torch.profiler breakdown of the QPSK,
 DVB-S and 32APSK bank steps by layer and kernel follows their phases,
-and each single-carrier block gains its count of CUDA kernels, their
-device time and a per-layer breakdown; the Chrome traces go to
-TRACE.json, TRACE_dvbs.json, TRACE_32apsk.json and TRACE_<name>.json.
+and each single-carrier block (DVB-S2 and DVB-S) gains its count of
+CUDA kernels, their device time and a per-layer breakdown; the Chrome
+traces go to TRACE.json, TRACE_dvbs.json, TRACE_32apsk.json and
+TRACE_<name>.json.
 
 Prints the kernels' JSON line (launches: the sum over the main paths'
 runs, each run with the counts set to 0 just before it; bound_ms: the
@@ -147,6 +167,17 @@ SLICE = {"qpsk12": (4, False, 5.0, None), "8psk34": (14, False, 11.0, None),
          "16apsk23": (18, False, 14.0, None),
          "32apsk34p": (24, True, 14.5, None),
          "8psk34_dummies": (14, False, 11.0, 3)}
+# the single-carrier DVB-S phase: code rate -> Es/N0 dB, about 3 dB
+# above where each rate's TS comes out clean after RS(204,188)
+DVBS_SINGLE = {"1/2": 8.0, "2/3": 9.0, "3/4": 10.0, "5/6": 11.0,
+               "7/8": 12.0}
+FIRST_BANK_BLOCK = 1 << 17      # build_dvbs_bank's block, samples
+
+
+def dvbs_key(rate: str) -> str:
+    """The signal key (and file name) of DVBS_SINGLE[rate]."""
+    return "dvbs" + rate.replace("/", "")
+
 
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores, which count a fused multiply-add as two;
@@ -280,6 +311,28 @@ def slice_signal(name: str):
     return y.astype(np.complex64), pkts.reshape(-1, 188)
 
 
+def dvbs_single_signal(rate: str):
+    """One DVB-S carrier at `rate` (DVBS_SINGLE's Es/N0) for the first
+    block and SLICE_BLOCKS more at SLICE_BLOCK symbols a block, with a
+    margin for the timing drift: complex64 samples and the packets sent.
+    CFO 0.004 pi, phase 0.4 rad, delay 0.3 samples, 10 ppm."""
+    from dvbs_tpu_torch.spec import dvbs_fec
+    from dvbs_tpu_torch.tx import channel, dvbs_mod
+    i = dvbs_fec.RATES.index(rate)
+    px, py = dvbs_fec.PUNCTURE[rate]
+    # a group is 8 x 204 bytes, n_kept coded bits for every p of them;
+    # a symbol carries 2 coded bits in 2 samples
+    per_group = 8 * 204 * 8 * int(px.sum() + py.sum()) // len(px)
+    need = (SLICE_BLOCKS + 1) * 2 * SLICE_BLOCK
+    ts = dvbs_mod.random_ts_groups(-(-need // per_group) + 3, seed=80 + i)
+    tx = dvbs_mod.DVBSModulator(rate=rate).ts_to_symbols(ts)
+    y = channel.impair(channel.shape(tx, sps=2), snr_db=DVBS_SINGLE[rate],
+                       cfo=0.004 * np.pi, phase=0.4, delay_samples=0.3,
+                       sco_ppm=10.0, seed=90 + i)
+    assert len(y) >= need + 2 * per_group, (rate, len(y), need)
+    return y.astype(np.complex64), ts.reshape(-1, 188)
+
+
 def stream_need(cfg, block: int, F: int, blocks: int) -> int:
     """Samples per carrier that a stream of `blocks` blocks after the
     first, plus flush, consumes (2 samples per symbol)."""
@@ -313,6 +366,8 @@ def start_signals(pool) -> dict:
     jobs["dvbs"] = [pool.submit(dvbs_carrier, c) for c in cs]
     for name in SLICE:
         jobs[name] = [pool.submit(slice_signal, name)]
+    for rate in DVBS_SINGLE:
+        jobs[dvbs_key(rate)] = [pool.submit(dvbs_single_signal, rate)]
     return jobs
 
 
@@ -320,9 +375,10 @@ def collect_signals(jobs: dict, t0: float, workers: int) -> dict:
     """Wait for every phase's signals: {phase: ([cs4 per carrier],
     [packets per carrier])}, or (samples, packets) for a slice signal."""
     sigs = {k: [f.result() for f in v] for k, v in jobs.items()}
+    single = set(SLICE) | {dvbs_key(r) for r in DVBS_SINGLE}
     out = {}
     for k, v in sigs.items():
-        if k in SLICE:                  # one carrier: (samples, packets)
+        if k in single:                 # one carrier: (samples, packets)
             out[k] = v[0]
             continue
         cs4 = [s for s, _ in v]
@@ -334,7 +390,7 @@ def collect_signals(jobs: dict, t0: float, workers: int) -> dict:
           f"{workers} worker processes ({time.perf_counter() - t0:.1f} s "
           f"since they were started, the build and the kernels' checks "
           f"included): " + ", ".join(
-              f"{k} {len(v[0] if k in SLICE else v[0][0])} samples"
+              f"{k} {len(v[0] if k in single else v[0][0])} samples"
               for k, v in out.items()))
     return out
 
@@ -495,7 +551,8 @@ def phase_resample(torch, dev):
     coef = torch.from_numpy(coef_np).to(dev)
     row = None
     for C, S in ((8, 552960), (8, 377920), (8, 284288), (8, 227392),
-                 (8, DVBS_BLOCK // 2), (1, SLICE_BLOCK)):
+                 (8, DVBS_BLOCK // 2), (1, SLICE_BLOCK),
+                 (8, FIRST_BANK_BLOCK // 2)):
         n2 = 2 * S
         rng = np.random.default_rng(2)
         y = torch.from_numpy((rng.normal(size=(C, n2)) + 1j * rng.normal(
@@ -516,20 +573,21 @@ def phase_resample(torch, dev):
                      batches=3)
         plain_ms = cuda_ms(lambda: rk.resample_plain(y, u, rb, bias, coef,
                                                      S), 3)
+        # bytes: y, u, rb, coef in, out written. Operations: 10 taps x (9
+        # multiply-adds of Horner's rule + 2 for re and im)
+        nbytes = y.numel() * 8 + u.numel() * 4 + rb.numel() * 4 + \
+            coef.numel() * 4 + C * S * 8
+        b = bound(nbytes, C * S * 10 * 22, F32_OPS)
         print(f"kernel B [{C}, {S}] (bias {bias}): max abs err {err:.3g} "
               f"(tol {RESAMPLE_TOL}), kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms")
+              f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
         if row is None:
-            # bytes: y, u, rb, coef in, out written. Operations: 10 taps
-            # x (9 multiply-adds of Horner's rule + 2 for re and im)
-            nbytes = y.numel() * 8 + u.numel() * 4 + rb.numel() * 4 + \
-                coef.numel() * 4 + C * S * 8
             row = dict(name="resample_farrow", route="cuda",
                        source="dvbs_tpu_torch/csrc/resample_farrow.cu",
                        replaces="dvbs_tpu/ops/resample_pallas.py:202",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None,
-                       **bound(nbytes, C * S * 10 * 22, F32_OPS))
+                       library_ms=None, **b)
             print(f"kernel B bound: {nbytes} bytes -> "
                   f"{nbytes / HBM_BPS * 1e3:.4f} ms; {C * S * 220} flops -> "
                   f"{C * S * 220 / F32_OPS * 1e3:.4f} ms "
@@ -558,10 +616,17 @@ def phase_viterbi(torch, dev):
     long[:, ::3, 1] = 0.0
     longer = rng.normal(0, 1.5, (3, 4000, 2))
     longer[:, ::3, 1] = 0.0
+    # the single-carrier receiver's blocks at 2^17 symbols: B segments of
+    # 2048 + 2 x 96 pairs, 64 at rate 1/2 and 112 at rate 7/8
+    receiver = rng.normal(0, 1.5, (112, 2240, 2))
+    receiver[:, ::3, 1] = 0.0
     cases = (("noisy codewords [4096, 704, 2], every third Y erased", bank),
              ("[4097, 704, 2]", more),
              ("ragged [130, 151, 2]", ragged),
              ("the single-carrier segments [8, 2240, 2]", long),
+             ("the receiver's rate-1/2 block [64, 2240, 2]", receiver[:64]),
+             ("the receiver's rate-7/8 block [112, 2240, 2]", receiver),
+             ("the first-block bank's step [1024, 704, 2]", bank[:1024]),
              ("one segment a CTA [3, 4000, 2]", longer),
              ("all-erasure [1, 704, 2]", np.zeros((1, T, 2)))) + tuple(
                  (f"[130, {t}, 2]", ragged[:, :t]) for t in range(1, 6))
@@ -577,8 +642,26 @@ def phase_viterbi(torch, dev):
                 f"from the plain version")
         err = max(err, int((got.to(torch.int32) - ref.to(torch.int32))
                            .abs().max()))
+        if x.shape[:2] not in ((64, 2240), (112, 2240), (1024, 704)):
+            print(f"kernel C {label}: bit-exact on all {got.numel()} bits; "
+                  f"kernel {cuda_ms(lambda: vk.decode_cuda(xt), 5):.3f} ms")
+            continue
+        # the main paths' shapes below the bank's: a single partial wave
+        # (CTAs of four segments: 16-28 on 132 SMs at T = 2240, 256 of the
+        # 528 that fit at once at T = 704), so the time is the serial
+        # chain's, ceil(T / 3) dependent ACS steps, against the bound of
+        # its operations
+        nseg, nsteps = x.shape[0], -(-x.shape[1] // vk.K)
+        ms = cuda_ms(lambda: vk.decode_cuda(xt), 20, batches=3)
+        plain_ms = cuda_ms(lambda: vk.decode_plain(xt), 2)
+        b = bound(xt.numel() * 4 + got.numel(),
+                  got.numel() * VITERBI_OPS_PER_STEP, F32_ADD_OPS)
         print(f"kernel C {label}: bit-exact on all {got.numel()} bits; "
-              f"kernel {cuda_ms(lambda: vk.decode_cuda(xt), 5):.3f} ms")
+              f"kernel {ms:.4f} ms (least of 3 batches of 20), plain "
+              f"{plain_ms:.1f} ms; {-(-nseg // vk.CTA_SEGMENTS)} CTAs; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); a chain of "
+              f"{nsteps} ACS steps: {ms * 1e6 / nsteps:.0f} ns a step with "
+              f"the traceback")
     big = torch.from_numpy(bank.astype(np.float32)).to(dev)
     core = vk.decode_cuda(big)[:, wing:T - wing].cpu().numpy()
     n_bad = int((core != truth[:, wing:T - wing]).sum())
@@ -1015,6 +1098,181 @@ def phase_slice(torch, sigs, trace=None) -> list:
     return runs
 
 
+@contextlib.contextmanager
+def made_streams(cls):
+    """Yields a list that collects every instance of cls made inside."""
+    made, init = [], cls.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+    cls.__init__ = spy
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+def measure_dvbs_block(torch, y, label: str, trace=None) -> None:
+    """Locked blocks of the single-carrier DVB-S receiver on the card:
+    the lock block and the locked chain's first block, then ms per block
+    (min and mean of 3 successive blocks, process_block ending in a
+    synchronise, the host tail included), launches per block, and from a
+    torch.profiler pass over one more block its CUDA kernels, their
+    device time and kernel C's share."""
+    from torch.profiler import ProfilerActivity, profile
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.models.dvbs import DVBSReceiver
+    rx = DVBSReceiver(block_symbols=SLICE_BLOCK)
+    n, pos = 2 * SLICE_BLOCK, [0]
+
+    def block():
+        rx.process_block(y[pos[0]:pos[0] + n])
+        pos[0] += rx.last_consumed
+    block()
+    block()
+    assert rx.locked and rx.drop == 0, label
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ours = dict(backend.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if str(e.device_type).endswith("CUDA")
+           and not e.is_user_annotation]
+    dev_ms = sum(e.device_time for e in evs) / 1e3
+    vit_ms = sum(e.device_time for e in evs if "viterbi" in e.name) / 1e3
+    vit_share = vit_ms / dev_ms if dev_ms else float("nan")
+    assert rx.locked and rx.ber < 0.05, (label, rx.ber)
+    segs = sorted({c.B for c in rx._locked_cache.values()})
+    print(f"{label} block [{n} samples, {segs} segments of 2240 pairs]: "
+          f"min {min(ms):.3f} ms, mean {sum(ms) / 3:.3f} ms per block (real "
+          f"time at 30 Mbaud: {SLICE_BLOCK / 30e3:.2f} ms); {len(evs)} CUDA "
+          f"kernels a block, {dev_ms:.3f} ms of device time (idle share "
+          f"{max(0.0, 1 - dev_ms / min(ms)):.3f}); kernel C {vit_ms:.4f} ms "
+          f"= {vit_ms / min(ms):.4f} of the block, {vit_share:.3f} of "
+          f"its device time; launches per block: kernel B "
+          f"{ours['resample_farrow']}, kernel C {ours['viterbi_acs']}")
+    if trace:
+        blk = y[pos[0]:pos[0] + n]
+        phase_profile(torch, lambda: rx.process_block(blk), trace,
+                      LAYERS_DVBS, label, reps=2)
+
+
+def phase_dvbs_single(torch, sigs, trace=None) -> list:
+    """The single-carrier DVB-S receiver (phase 11 of the module
+    docstring). Returns the launch counts of every run."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.io import source
+    from dvbs_tpu_torch.models.dvbs import DVBSStream
+    from dvbs_tpu_torch.spec import dvbs_fec
+    from dvbs_tpu_torch.tx import signals
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def cli_run(label, y, extra=()):
+            iq = os.path.join(tmp, f"{label}.cf32")
+            out = os.path.join(tmp, f"{label}.ts")
+            source.write_iq_file(iq, y)
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            with made_streams(DVBSStream) as made:
+                run_cli(["--iq", iq, "--mode", "s", "--block-symbols",
+                         str(SLICE_BLOCK), "--out", out] + list(extra))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(backend.LAUNCHES)
+            runs.append(launches)
+            with open(out, "rb") as f:
+                return f.read(), made[0], launches, dt
+
+        whole = {}
+        for rate, snr in DVBS_SINGLE.items():
+            key = dvbs_key(rate)
+            y, sent = sigs[key]
+            label = f"DVB-S {rate} ({snr} dB)"
+            ts, st, launches, dt = cli_run(key, y)
+            bers = list(st._ber_ring)
+            blocks = len(bers)
+            px, py = dvbs_fec.PUNCTURE[rate]
+            per = SLICE_BLOCK * 2 * len(px) / int(px.sum() + py.sum()) \
+                / 8 / 204
+            npk = signals.contiguous_packets(ts, sent, label)
+            print(f"cli {label}: {len(y)} samples, {blocks} blocks in "
+                  f"{dt:.2f} s = {dt / blocks * 1e3:.1f} ms a block, reading "
+                  f"and writing the files included; rate found "
+                  f"{st.metrics.viterbi_rate}; re-encode BER per block "
+                  f"{[round(b, 4) for b in bers]}; TS one byte-exact "
+                  f"contiguous run of {npk} packets; launches {launches}")
+            assert st.metrics.viterbi_rate == rate == st.rx.rate, label
+            assert st.rx.locked and max(bers) < 0.05, (label, bers)
+            assert blocks >= SLICE_BLOCKS, (label, blocks)
+            assert npk >= (blocks - 2) * per, (label, npk, per)
+            assert launches["viterbi_acs"] >= blocks - 1, (label, launches)
+            assert launches["resample_farrow"] >= blocks, (label, launches)
+            whole[rate] = ts
+            measure_dvbs_block(torch, y, label,
+                               trace and f"{trace}_{key}.json")
+
+        # two runs joined by a state file
+        y, sent = sigs[dvbs_key("1/2")]
+        half = (len(y) // 2) // (4 * SLICE_BLOCK) * (4 * SLICE_BLOCK)
+        state = os.path.join(tmp, "rx.state")
+        ts_a = cli_run("dvbs12_a", y[:half], ["--state-file", state])[0]
+        assert os.path.exists(state)
+        ts_b = cli_run("dvbs12_b", y[half:], ["--state-file", state])[0]
+        assert len(ts_a) > 0 and len(ts_b) > 0
+        assert ts_a + ts_b == whole["1/2"], "state-file resume differs"
+        print(f"DVB-S 1/2 state-file resume: {len(ts_a) // 188} + "
+              f"{len(ts_b) // 188} packets, equal to the uninterrupted run")
+    return runs
+
+
+def phase_first_bank(torch, dev, smi, sigs, sents):
+    """The first-block DVB-S bank (phase 12 of the module docstring)."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.models.dvbs import DVBSReceiver
+    from dvbs_tpu_torch.parallel.dvbs_bank import build_dvbs_bank
+    from dvbs_tpu_torch.tx import signals
+    n = FIRST_BANK_BLOCK
+    dev_in = torch.from_numpy(np.stack([s[:n] for s in sigs])).to(dev)
+    step, example = build_dvbs_bank(N_CARRIERS, rate="1/2", block_samples=n,
+                                    ingest="cs4", device=dev)
+    assert tuple(dev_in.shape) == example.shape
+    backend.reset_launches()
+    out = step(dev_in)
+    torch.cuda.synchronize()
+    launches = dict(backend.LAUNCHES)
+    ber = out["ber"].cpu().numpy()
+    bits = np.unpackbits(out["bits"].cpu().numpy(), axis=1)[:, :out["n_pairs"]]
+    npk = []
+    for c in range(N_CARRIERS):
+        rx = DVBSReceiver(rate="1/2", block_symbols=n // 2, device=dev)
+        ts = rx._host_tail(np.ascontiguousarray(bits[c]), None, n // 2)
+        npk.append(signals.contiguous_packets(ts.ts_packets.tobytes(),
+                                              sents[c], f"first bank c{c}"))
+    print(f"first-block DVB-S bank: {N_CARRIERS} carriers x {n} cs4 samples, "
+          f"{out['n_pairs']} pairs each; re-encode BER {ber.tolist()}; TS "
+          f"one byte-exact contiguous run per carrier ({min(npk)}..{max(npk)}"
+          f" packets); launches {launches}")
+    assert (ber < 0.02).all(), ber
+    assert min(npk) >= 8, npk
+    for name in ("viterbi_acs", "resample_farrow"):
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the first-block bank"
+    B = -(-out["n_pairs"] // 512)
+    time_step(torch, step, dev_in, "first-block DVB-S bank step",
+              f"{N_CARRIERS * B} Viterbi segments of 704 pairs", smi)
+    return launches
+
+
 LAYERS_S2 = ("frontend", "timing", "plsync", "phase", "demap", "ldpc",
              "bch_pack")
 LAYERS_DVBS = ("frontend", "timing", "carrier", "viterbi", "ber_pack")
@@ -1158,6 +1416,10 @@ def main() -> int:
     stamp("pilots banks")
     runs += phase_slice(torch, sigs, trace if args.profile else None)
     stamp("single-carrier slice")
+    runs += phase_dvbs_single(torch, sigs, trace if args.profile else None)
+    stamp("single-carrier DVB-S")
+    runs.append(phase_first_bank(torch, dev, smi, *sigs["dvbs"]))
+    stamp("first-block DVB-S bank")
     kernels_line(rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,9 @@ xla` the float decoder.
 Examples:
   python -m dvbs_tpu_torch.cli --iq capture.cf32 --mode s2 --modcod 4 \
       --framesize normal --fec pallas --out stream.ts
+  python -m dvbs_tpu_torch.cli --iq capture.cf32 --mode s --out stream.ts
   python -m dvbs_tpu_torch.cli --iq capture.cf32 --mode s2 --auto-modcod \
       --udp 127.0.0.1:5000
-
-Not ported yet (each exits with an error that names ROADMAP.md):
-single-carrier `--mode s` (models/dvbs.DVBSStream).
 """
 from __future__ import annotations
 
@@ -26,6 +24,7 @@ from .io import source, sink
 from .io.config import Config
 from .spec import modcod
 from .models.driver import DVBS2Stream
+from .models.dvbs import DVBSStream
 
 
 def main(argv=None):
@@ -76,10 +75,10 @@ def main(argv=None):
                          "card, any number of frames per call)")
     ap.add_argument("--viterbi", default="auto",
                     choices=["auto", "xla", "pallas"],
-                    help="DVB-S ACS decoder of the fused bank: the "
-                         "radix-8 CUDA kernel on the card, its plain "
-                         "version on the CPU (the device decides; the "
-                         "value is accepted for compatibility)")
+                    help="DVB-S Viterbi segment decoder: auto or "
+                         "pallas the radix-8 kernel (the CUDA kernel on "
+                         "the card, its plain version on the CPU), xla "
+                         "the float decoder of ops/viterbi.py")
     ap.add_argument("--state-file", default=None,
                     help="checkpoint/resume: restore stream state from "
                          "this file at startup (if it exists) and write "
@@ -132,6 +131,10 @@ def main(argv=None):
         return None
 
     def make_stream():
+        if args.mode == "s":
+            return DVBSStream(rate=args.rate,
+                              block_symbols=args.block_symbols,
+                              viterbi_impl=args.viterbi, device=device)
         return DVBS2Stream(mc=mc, short=short, pilots=pilots,
                            block_symbols=args.block_symbols,
                            auto_modcod=args.auto_modcod,
@@ -168,12 +171,8 @@ def main(argv=None):
         from .parallel.dvbs_bank import DVBSBankStream
         bank = DVBSBankStream(C, rate=args.rate,
                               block_samples=2 * args.block_symbols,
-                              device=device)
+                              viterbi_impl=args.viterbi, device=device)
         streams = [bank]
-    elif args.mode == "s":
-        ap.error("single-carrier --mode s (models/dvbs.DVBSStream) is not "
-                 "ported yet: see ROADMAP.md, port queue 1. The fused "
-                 "DVB-S bank runs with --carrier and --rate")
     else:
         streams = [make_stream() for _ in range(C)]
     sinks = [make_sink(ci) for ci in range(C)]

@@ -187,6 +187,14 @@ class BlockResult:
     starts: np.ndarray | None = None  # [F] int32 located frame starts
 
 
+EDGE_MARGIN = 256       # symbols kept clear at each end of a block
+
+
+def frames_per_block(cfg: modcod.ModcodConfig, block_symbols: int) -> int:
+    """PL frames a block of `block_symbols` symbols decodes."""
+    return (block_symbols - 2 * EDGE_MARGIN - 90) // cfg.plframe_len - 1
+
+
 class DVBS2Receiver:
     """Fixed-MODCOD DVB-S2 block receiver (dvbs2.DVBS2Receiver) on
     `device` (None: the card).
@@ -215,9 +223,8 @@ class DVBS2Receiver:
         self.sof_threshold = sof_threshold
         self.fec = fec
         self.dummy_aware = dummy_aware
-        L = self.cfg.plframe_len
-        self.edge_margin = 256
-        self.n_frames = (block_symbols - 2 * self.edge_margin - 90) // L - 1
+        self.edge_margin = EDGE_MARGIN
+        self.n_frames = frames_per_block(self.cfg, block_symbols)
         if self.n_frames < 1:
             raise ValueError("block_symbols must cover at least 2 PL frames")
         self.device = backend.resolve_device(device)

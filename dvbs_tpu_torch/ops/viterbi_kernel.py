@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import backend, tables
+from . import viterbi
 from .frontend import bf16_round
 
 K = 3                                   # trellis steps per ACS step
@@ -110,6 +111,18 @@ def decode_segments(llrs: torch.Tensor) -> torch.Tensor:
     if backend.use_kernel(llrs):
         return decode_cuda(llrs)
     return decode_plain(llrs)
+
+
+def select_decoder(impl: str = "auto"):
+    """The segment decoder named by `impl` (viterbi_pallas.select_decoder's
+    names): "auto" and "pallas" this module's decode_segments (kernel C
+    on a CUDA tensor, its plain version on a CPU tensor), "xla" the
+    decoder of ops/viterbi.py. Both give the same segment cores."""
+    if impl in ("auto", "pallas"):
+        return decode_segments
+    if impl != "xla":
+        raise ValueError(f"unknown viterbi impl {impl!r}")
+    return viterbi.decode_segments
 
 
 def decode_plain(llrs: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,8 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..spec import modcod
-from ..models.dvbs2 import DVBS2Receiver, run_fec
-from ..ops import frontend
+from ..models.dvbs2 import DVBS2Receiver, frames_per_block, run_fec
+from ..ops import frontend, ldpc_kernel
 
 
 def bank_block_symbols(n_carriers: int = 8, mc: int = 4,
@@ -79,10 +79,17 @@ def build_carrier_bank(n_carriers: int, mc: int = 4, short: bool = False,
     starts [C, F], cfo [C, 1], freq [C, F], hard [C*F, nldpc] and llrs
     [C*F, nldpc], and escalate(llrs) reruns the FEC at n_iters_full.
 
-    fec: "int8" or "pallas" (the int8 layered decoder; "auto" resolves
-    to it), or "xla" (the float decode_qc).
+    fec: "int8" or "pallas" (the int8 layered decoder), "xla" (the
+    float decode_qc), or "auto": as dvbs_tpu, the int8 decoder when the
+    bank's frame total C * F is one decode call's CALL_FRAMES (128, the
+    size bank_block_symbols gives), the float decoder otherwise.
     """
-    if fec in ("auto", "int8"):
+    if fec == "auto":
+        F = frames_per_block(modcod.get_config(mc, short=short,
+                                               pilots=pilots), block_symbols)
+        fec = "pallas" if n_carriers * F == ldpc_kernel.CALL_FRAMES \
+            else "xla"
+    elif fec == "int8":
         fec = "pallas"
     if fec not in ("pallas", "xla"):
         raise ValueError(f"unknown fec {fec!r}")

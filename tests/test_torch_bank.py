@@ -88,14 +88,19 @@ def test_bank_step_matches(signals, jax_step_out, tables_from):
 
 
 def test_fec_names():
-    """"auto", "int8" and "pallas" name the int8 layered decoder, "xla"
-    the float decode_qc; pilotless 8PSK builds (the decision-directed
+    """"int8" and "pallas" name the int8 layered decoder, "xla" the float
+    decode_qc, and "auto" picks as dvbs_tpu does: int8 at a frame total
+    of 128, float otherwise; pilotless 8PSK builds (the decision-directed
     track); an unknown name raises."""
     kw = dict(mc=MC, short=SHORT, block_symbols=BLOCK, device="cpu")
-    for name, want in (("auto", "pallas"), ("int8", "pallas"),
+    for name, want in (("auto", "xla"), ("int8", "pallas"),
                        ("pallas", "pallas"), ("xla", "xla")):
         step, _ = mesh.build_carrier_bank(C, fec=name, **kw)
         assert step.rx.fec == want
+    full = mesh.bank_block_symbols(C, mc=MC, short=SHORT)   # 128 frames
+    step, _ = mesh.build_carrier_bank(C, mc=MC, short=SHORT,
+                                      block_symbols=full, device="cpu")
+    assert C * step.rx.n_frames == 128 and step.rx.fec == "pallas"
     with pytest.raises(ValueError):
         mesh.build_carrier_bank(C, fec="f32", **kw)
     step, _ = mesh.build_carrier_bank(C, mc=13, short=True,
@@ -104,6 +109,31 @@ def test_fec_names():
     step, _ = mesh.build_carrier_bank(C, mc=13, short=True, pilots=True,
                                       block_symbols=BLOCK, device="cpu")
     assert step.rx.cfg.pilots and step.rx.cfg.constellation == modcod.PSK8
+
+
+def test_fec_auto_at_another_total(signals, jax_stream_ts):
+    """fec="auto" at a frame total other than 128 (here C * F = 4) takes
+    the float decode_qc in both packages: equal trials and bytes of a
+    bank step, and equal TS bytes of the stream."""
+    samples = np.stack([s[:N] for s in signals[0]])
+    jstep, _ = jmesh.build_carrier_bank(C, mc=MC, short=SHORT,
+                                        block_symbols=BLOCK, fec="auto",
+                                        ingest="cs4")
+    ref = {k: np.asarray(v) for k, v in jstep(samples).items()}
+    step, _ = mesh.build_carrier_bank(C, mc=MC, short=SHORT,
+                                      block_symbols=BLOCK, fec="auto",
+                                      ingest="cs4", device="cpu")
+    assert step.rx.fec == "xla"
+    out = {k: v.numpy() for k, v in step(torch.from_numpy(samples)).items()}
+    for k in ("trials", "kbch_bytes", "ldpc_ok", "bch_bad"):
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=BLOCK,
+                         ingest="cs4", device="cpu")
+    outs = [bytearray(), bytearray()]
+    _stream(st, signals[0], 0, _need(), outs)
+    for c, o in zip(st.flush(), outs):
+        o.extend(c)
+    assert [bytes(o) for o in outs] == jax_stream_ts
 
 
 def _stream(st, sigs, lo, hi, outs):

@@ -23,7 +23,10 @@ Tolerances and why:
   polynomial rounded one operation at a time as the plain version);
 - the single-carrier receiver and stream (pilotless 8PSK, the
   decision-directed track) on the card, no device named, against the
-  same on the CPU: frame verdicts, trials and bytes exact.
+  same on the CPU: frame verdicts, trials and bytes exact;
+- the single-carrier DVB-S stream (rate 3/4, found by the lock search)
+  and the first-block DVB-S bank on the card against the same on the
+  CPU: TS bytes, decoded bits and re-encode BER exact (12 dB).
 """
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ import torch
 from dvbs_tpu_torch import backend, tables
 from dvbs_tpu_torch.kernels import probe_resample as pr
 from dvbs_tpu_torch.models.driver import DVBS2Stream
+from dvbs_tpu_torch.models.dvbs import DVBSStream
 from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
 from dvbs_tpu_torch.ops import ldpc_kernel
 from dvbs_tpu_torch.ops import resample_kernel as rk
@@ -186,8 +190,8 @@ def test_small_bank_on_card_matches_cpu(dev):
     outs = []
     for d in (torch.device("cpu"), dev):
         step, _ = mesh.build_carrier_bank(2, mc=4, short=True,
-                                          block_symbols=block, ingest="cs4",
-                                          device=d)
+                                          block_symbols=block, fec="int8",
+                                          ingest="cs4", device=d)
         backend.reset_launches()
         outs.append({k: v.cpu().numpy() for k, v in step(x.to(d)).items()})
         if d.type == "cuda":
@@ -218,8 +222,8 @@ def test_small_pilots_bank_on_card_matches_cpu(dev):
     outs = []
     for d in (torch.device("cpu"), dev):
         step, _ = mesh.build_carrier_bank(2, mc=13, short=True, pilots=True,
-                                          block_symbols=block, ingest="cs4",
-                                          device=d)
+                                          block_symbols=block, fec="int8",
+                                          ingest="cs4", device=d)
         outs.append({k: v.cpu().numpy() for k, v in step(x.to(d)).items()})
     cpu, gpu = outs
     assert cpu["ldpc_ok"].all()
@@ -230,6 +234,7 @@ def test_small_pilots_bank_on_card_matches_cpu(dev):
 
 VITERBI_SHAPES = {"noisy": (256, 704), "ragged": (130, 151),
                   "ragged_cta": (4097, 704), "long": (8, 2240),
+                  "receiver": (112, 2240),
                   "one_a_cta": (3, 4000),
                   **{f"T{t}": (130, t) for t in range(1, 6)}}
 
@@ -237,7 +242,8 @@ VITERBI_SHAPES = {"noisy": (256, 704), "ragged": (130, 151),
 def _viterbi_case(name):
     """noisy and ragged as before; ragged_cta leaves the last CTA one
     segment of four, long is the single-carrier DVB-S receiver's segment
-    (core 2048 + 2 x 96), one_a_cta is longer than four segments a CTA
+    (core 2048 + 2 x 96) and receiver its block at rate 7/8 and 2^17
+    symbols (112 segments), one_a_cta is longer than four segments a CTA
     can be, T1..T5 end inside the first ACS steps."""
     rng = np.random.default_rng({"noisy": 3, "ragged": 4, "erased": 0}
                                 .get(name, 5))
@@ -252,7 +258,8 @@ def _viterbi_case(name):
 
 
 @pytest.mark.parametrize("name", ["noisy", "ragged", "erased", "ragged_cta",
-                                  "long", "one_a_cta", "T1", "T2", "T3", "T4", "T5"])
+                                  "long", "receiver", "one_a_cta", "T1", "T2",
+                                  "T3", "T4", "T5"])
 def test_viterbi_kernel_matches_plain(dev, name):
     x = torch.from_numpy(_viterbi_case(name)).to(dev)
     backend.reset_launches()
@@ -394,3 +401,39 @@ def test_receiver_and_stream_on_the_card(dev):
         outs.append(b"".join(st.feed(y[lo:lo + B])
                              for lo in range(0, len(y), B)))
     assert outs[0] == outs[1] and len(outs[0]) > 188 * 100
+
+
+def test_dvbs_stream_and_first_bank_on_the_card(dev):
+    """No device named: the card. A rate-3/4 carrier through DVBSStream
+    (the locked chain runs kernel C once a block; --viterbi xla never),
+    and two carriers through build_dvbs_bank."""
+    ts = dvbs_mod.random_ts_groups(18, seed=71)
+    tx = dvbs_mod.DVBSModulator(rate="3/4").ts_to_symbols(ts)
+    y = channel.impair(channel.shape(tx, sps=2), snr_db=12.0,
+                       cfo=0.004 * np.pi, phase=0.4, delay_samples=0.3,
+                       sco_ppm=10.0, seed=72)
+    B = 1 << 15
+    outs, launches = [], []
+    for d, impl in ((None, "auto"), ("cpu", "auto"), (None, "xla")):
+        st = DVBSStream(block_symbols=B, viterbi_impl=impl, device=d)
+        backend.reset_launches()
+        outs.append(b"".join(st.feed(y[lo:lo + 3 * B])
+                             for lo in range(0, len(y), 3 * B)))
+        launches.append(dict(backend.LAUNCHES))
+        assert st.rx.locked and st.rx.rate == "3/4"
+    assert outs[0] == outs[1] == outs[2] and len(outs[0]) > 188 * 50
+    assert launches[0]["viterbi_acs"] >= 3
+    assert launches[0]["resample_farrow"] >= 4
+    assert launches[2]["viterbi_acs"] == 0
+    n = 1 << 17
+    x = np.stack([pack_cs4(y[:n]), pack_cs4(y[n:2 * n])])
+    got = []
+    for d in (None, "cpu"):
+        step, _ = dvbs_bank.build_dvbs_bank(2, rate="3/4", block_samples=n,
+                                            device=d)
+        got.append({k: v.cpu().numpy() for k, v in
+                    step(torch.from_numpy(x).to(dev if d is None else d))
+                    .items() if k != "n_pairs"})
+    assert (got[1]["ber"] < 0.02).all()
+    for k in ("bits", "ber"):
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)

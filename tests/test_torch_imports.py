@@ -77,11 +77,12 @@ def test_no_source_imports_the_jax_package():
 def _entry_points():
     from dvbs_tpu_torch.models.bank_stream import DVBS2BankStream
     from dvbs_tpu_torch.models.driver import DVBS2Stream
-    from dvbs_tpu_torch.models.dvbs import DVBSReceiver
+    from dvbs_tpu_torch.models.dvbs import DVBSReceiver, DVBSStream
     from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
     from dvbs_tpu_torch.ops import viterbi
     from dvbs_tpu_torch.ops.resample import Channelizer, StreamingResampler
     from dvbs_tpu_torch.parallel.dvbs_bank import (DVBSBankStream,
+                                                   build_dvbs_bank,
                                                    build_dvbs_stream_bank)
     from dvbs_tpu_torch.parallel.mesh import build_carrier_bank
     s2 = dict(mc=4, short=True, block_symbols=1 << 15)
@@ -91,6 +92,9 @@ def _entry_points():
         "DVBS2BankStream": lambda **kw: DVBS2BankStream(2, **s2, **kw),
         "build_carrier_bank": lambda **kw: build_carrier_bank(2, **s2, **kw),
         "DVBSReceiver": lambda **kw: DVBSReceiver(rate="1/2", **kw),
+        "DVBSStream": lambda **kw: DVBSStream(**kw),
+        "build_dvbs_bank": lambda **kw: build_dvbs_bank(
+            2, rate="1/2", block_samples=1 << 14, **kw),
         "build_dvbs_stream_bank": lambda **kw: build_dvbs_stream_bank(
             2, rate="1/2", block_samples=1 << 14, **kw),
         "DVBSBankStream": lambda **kw: DVBSBankStream(
@@ -104,7 +108,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", [
     "DVBS2Receiver", "DVBS2Stream", "DVBS2BankStream", "build_carrier_bank",
-    "DVBSReceiver", "build_dvbs_stream_bank", "DVBSBankStream",
+    "DVBSReceiver", "DVBSStream", "build_dvbs_bank",
+    "build_dvbs_stream_bank", "DVBSBankStream",
     "StreamingResampler", "Channelizer", "viterbi.decode_stream"])
 def test_entry_point_device(name, monkeypatch):
     """No device named: the card, and RuntimeError when there is none
@@ -132,6 +137,9 @@ def test_cli_device(tmp_path, monkeypatch):
     assert cli.main(["--iq", str(iq), "--modcod", "4", "--framesize",
                      "short", "--block-symbols", "32768", "--device",
                      "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--iq", str(iq), "--mode", "s"])
+    assert cli.main(["--iq", str(iq), "--mode", "s", "--device", "cpu"]) == 0
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

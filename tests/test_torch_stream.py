@@ -513,18 +513,20 @@ def test_cli_same_output(tmp_path):
 
 
 def test_cli_routes(tmp_path, capsys):
-    """Single-carrier --mode s names ROADMAP.md and exits; two carriers
-    of one capture run the fused DVB-S2 bank and the fused DVB-S bank."""
+    """Single-carrier --mode s runs the auto-locking DVBSStream (on noise:
+    no output); --carrier needs the rates; two carriers of one
+    capture run the fused DVB-S2 bank, the fused DVB-S bank with --rate
+    and one DVBSStream per carrier without it."""
     iq = str(tmp_path / "z.cf32")
-    source.write_iq_file(iq, np.zeros(4096, np.complex64))
-    with pytest.raises(SystemExit):
-        cli.main(["--iq", iq, "--mode", "s", "--device", "cpu"])
-    assert "ROADMAP.md" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        cli.main(["--iq", iq, "--carrier", "1e5:1e5", "--device", "cpu"])
     rng = np.random.default_rng(3)
     wide = (rng.normal(size=60000) + 1j * rng.normal(size=60000)).astype(
         np.complex64)
+    source.write_iq_file(iq, wide[:8192])
+    assert cli.main(["--iq", iq, "--mode", "s", "--block-symbols", "2048",
+                     "--device", "cpu"]) == 0
+    assert "out=0B vit_sig=" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["--iq", iq, "--carrier", "1e5:1e5", "--device", "cpu"])
     source.write_iq_file(iq, wide)
     rates = ["--samplerate", "4e6", "--symbolrate", "1e6", "--offset=-1e6",
              "--carrier", "1e6:1e6", "--device", "cpu"]
@@ -536,6 +538,9 @@ def test_cli_routes(tmp_path, capsys):
     assert cli.main(["--iq", iq, "--mode", "s", "--rate", "1/2",
                      "--block-symbols", "8192"] + rates) == 0
     assert "dvbs bank lock=" in capsys.readouterr().err
+    assert cli.main(["--iq", iq, "--mode", "s", "--block-symbols", "8192"]
+                    + rates) == 0
+    assert "  [c1] out+=0B" in capsys.readouterr().err
 
 
 def test_device_trace(tmp_path):
