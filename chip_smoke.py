@@ -25,9 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. kernel B (barrel+Farrow resampler) against its plain version at
    C=8 and each bank's symbols per block (552960 for QPSK 1/2; 377920,
    284288 and 227392 for the pilots banks; 262144 for DVB-S; 65536 for
-   the first-block DVB-S bank) and at [1, 131072], the single-carrier
-   block, with drifting positions of both signs: max abs error <= 1e-5,
-   each timed against its bound;
+   the first-block DVB-S bank; 32768 for the multi-carrier step), at
+   [1, 131072], the single-carrier block, and at [1, 32768], the
+   short-frame receiver's and time shard's, with drifting positions of
+   both signs: max abs error <= 1e-5, each timed against its bound;
 5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
    bit for bit on every output bit: noisy codewords at the DVB-S bank's
    shape [4096, 704, 2] with every third Y erased (whose segment cores
@@ -84,7 +85,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    carriers (rate 1/2, cs4), 2^17 samples, one step: every carrier's
    re-encode BER < 0.02, its bits through the host tail one byte-exact
    contiguous run of its own packets, kernels B and C launched; then
-   the step is timed with CUDA events.
+   the step is timed with CUDA events;
+13. the LMS equalizer: DVBS2Receiver(equalize=True, fec="pallas") on a
+   QPSK 1/2 carrier through a static 2-ray echo (0.18 - 0.1j at 2
+   symbols, 9 dB, seed 6) at 2^15 symbols of short frames and at 2^17 of
+   normal frames: every frame decodes, the equalizer's output on the
+   card is within 1e-4 max abs of lms_equalize on the CPU on the same
+   symbols, kernel B launched; each block is timed with and without the
+   equalizer (ms per block, CUDA kernels per block), and the equalizer
+   alone;
+14. the sharded builds at world size 1 over NCCL (a FileStore in a
+   temporary directory, the group destroyed at the end):
+   build_multi_carrier with 8 distinct carriers (2^15 symbols, short
+   frames): every frame decodes, locked == C*F; DVBS2BankStream over
+   build_carrier_bank_sharded at the main path's geometry and signals
+   (8 carriers of QPSK 1/2 normal frames, cs4, >= 4 blocks plus flush):
+   every frame decodes and every carrier's TS is one byte-exact
+   contiguous run, its step timed beside the unsharded
+   build_carrier_bank(fec="xla") and the gather alone;
+   build_time_sharded at 2^15 short and 2^17 normal frames: every
+   output equal to the receiver's symbol program and full-budget FEC on
+   the same wrapped window; entry() once. Kernel B launched on each.
 
 With --profile TRACE.json, a torch.profiler breakdown of the QPSK,
 DVB-S and 32APSK bank steps by layer and kernel follows their phases,
@@ -172,6 +193,10 @@ SLICE = {"qpsk12": (4, False, 5.0, None), "8psk34": (14, False, 11.0, None),
 DVBS_SINGLE = {"1/2": 8.0, "2/3": 9.0, "3/4": 10.0, "5/6": 11.0,
                "7/8": 12.0}
 FIRST_BANK_BLOCK = 1 << 17      # build_dvbs_bank's block, samples
+# the equalizer phase: name -> short frames, block symbols, packets (QPSK
+# 1/2 through the JAX package's test echo)
+EQ = {"eq_short": (True, 1 << 15, 120), "eq_normal": (False, 1 << 17, 200)}
+EQ_TOL = 1e-4                   # card against CPU, max abs, equalized
 
 
 def dvbs_key(rate: str) -> str:
@@ -333,6 +358,26 @@ def dvbs_single_signal(rate: str):
     return y.astype(np.complex64), ts.reshape(-1, 188)
 
 
+def eq_signal(name: str):
+    """The equalizer phase's carrier EQ[name]: QPSK 1/2 through a static
+    2-ray echo at 2 symbols (0.18 - 0.1j), 9 dB, CFO 0.004 pi, seed 6,
+    as the JAX package's tests/test_equalizer.py; complex64 samples and
+    the packets sent."""
+    from dvbs_tpu_torch.spec import modcod
+    from dvbs_tpu_torch.tx import channel, dvbs2_mod
+    short, _, n_pkts = EQ[name]
+    cfg = modcod.get_config(4, short=short)
+    pkts = dvbs2_mod.random_ts_packets(n_pkts, seed=5)
+    tx = dvbs2_mod.bbframes_to_plframes(
+        dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+    x = channel.shape(tx, sps=2)
+    echo = np.zeros(3, np.complex64)
+    echo[0], echo[2] = 1.0, 0.18 - 0.1j
+    y = channel.impair(np.convolve(x, echo)[:len(x)], snr_db=9.0,
+                       cfo=0.004 * np.pi, seed=6)
+    return y.astype(np.complex64), pkts.reshape(-1, 188)
+
+
 def stream_need(cfg, block: int, F: int, blocks: int) -> int:
     """Samples per carrier that a stream of `blocks` blocks after the
     first, plus flush, consumes (2 samples per symbol)."""
@@ -368,6 +413,8 @@ def start_signals(pool) -> dict:
         jobs[name] = [pool.submit(slice_signal, name)]
     for rate in DVBS_SINGLE:
         jobs[dvbs_key(rate)] = [pool.submit(dvbs_single_signal, rate)]
+    for name in EQ:
+        jobs[name] = [pool.submit(eq_signal, name)]
     return jobs
 
 
@@ -375,7 +422,7 @@ def collect_signals(jobs: dict, t0: float, workers: int) -> dict:
     """Wait for every phase's signals: {phase: ([cs4 per carrier],
     [packets per carrier])}, or (samples, packets) for a slice signal."""
     sigs = {k: [f.result() for f in v] for k, v in jobs.items()}
-    single = set(SLICE) | {dvbs_key(r) for r in DVBS_SINGLE}
+    single = set(SLICE) | set(EQ) | {dvbs_key(r) for r in DVBS_SINGLE}
     out = {}
     for k, v in sigs.items():
         if k in single:                 # one carrier: (samples, packets)
@@ -552,7 +599,7 @@ def phase_resample(torch, dev):
     row = None
     for C, S in ((8, 552960), (8, 377920), (8, 284288), (8, 227392),
                  (8, DVBS_BLOCK // 2), (1, SLICE_BLOCK),
-                 (8, FIRST_BANK_BLOCK // 2)):
+                 (8, FIRST_BANK_BLOCK // 2), (8, 1 << 15), (1, 1 << 15)):
         n2 = 2 * S
         rng = np.random.default_rng(2)
         y = torch.from_numpy((rng.normal(size=(C, n2)) + 1j * rng.normal(
@@ -723,11 +770,13 @@ def phase_probe(torch, dev):
     return row, launches
 
 
-def stream_bank(torch, st, sigs, sents, blocks: int, label: str) -> dict:
+def stream_bank(torch, st, sigs, sents, blocks: int, label: str,
+                kernels=("ldpc_layered", "resample_farrow")) -> dict:
     """Feed a DVBS2BankStream `blocks` blocks after the first, plus flush,
-    with the counts set to 0 just before; every frame must decode and
-    every carrier's TS must be one byte-exact contiguous run of its own
-    packets. Returns the launch counts of the run."""
+    with the counts set to 0 just before; every frame must decode, every
+    carrier's TS must be one byte-exact contiguous run of its own
+    packets, and each of `kernels` must have been launched. Returns the
+    launch counts of the run."""
     from dvbs_tpu_torch import backend
     from dvbs_tpu_torch.tx import signals
     cfg = st.cfg
@@ -764,7 +813,7 @@ def stream_bank(torch, st, sigs, sents, blocks: int, label: str) -> dict:
         assert npk >= want, f"c{c}: {npk} packets < {want}"
     print(f"{label} TS: every carrier one byte-exact contiguous run "
           f"(>= {want} packets each)")
-    for name in ("ldpc_layered", "resample_farrow"):
+    for name in kernels:
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the {label}"
     return launches
@@ -1273,6 +1322,205 @@ def phase_first_bank(torch, dev, smi, sigs, sents):
     return launches
 
 
+def phase_equalizer(torch, sigs) -> list:
+    """DVBS2Receiver(equalize=True) on the card (phase 13 of the module
+    docstring). Returns the launch counts of each block's run."""
+    from dvbs_tpu_torch import backend
+    from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
+    from dvbs_tpu_torch.ops import equalizer
+    runs = []
+    orig = equalizer.lms_equalize
+    for name, (short, block, _) in EQ.items():
+        blk = sigs[name][0][:2 * block]
+        kw = dict(mc=4, short=short, block_symbols=block, fec="pallas")
+        rx = DVBS2Receiver(equalize=True, **kw)
+        seen = []
+
+        def spy(z):
+            out = orig(z)
+            seen.append((z, out))
+            return out
+        equalizer.lms_equalize = spy
+        try:
+            backend.reset_launches()
+            res = rx.process_symbols_block(blk)
+            torch.cuda.synchronize()
+        finally:
+            equalizer.lms_equalize = orig
+        launches = dict(backend.LAUNCHES)
+        runs.append(launches)
+        assert len(seen) == 1, len(seen)
+        z, got = seen[0]
+        err = float((got.cpu() - orig(z.cpu())).abs().max())
+        eq_ms = cuda_ms(lambda: orig(z), 10, batches=3)
+        label = f"equalizer {name} ({'short' if short else 'normal'} " \
+            f"frames, {block} symbols)"
+        print(f"{label}: frame_ok {res.frame_ok.tolist()}, trials "
+              f"{res.ldpc_trials.tolist()}; equalized symbols {tuple(z.shape)} "
+              f"against lms_equalize on the CPU: max abs err {err:.3g} (tol "
+              f"{EQ_TOL}); lms_equalize alone {eq_ms:.3f} ms (CUDA events, "
+              f"least of 3 batches of 10); launches {launches}")
+        assert res.frame_ok.all(), f"{label}: frames lost {res.frame_ok}"
+        assert err <= EQ_TOL, f"{label}: {err} > {EQ_TOL}"
+        assert launches["resample_farrow"] > 0, label
+        measure_block(torch, rx, blk, f"{label} on", True)
+        measure_block(torch, DVBS2Receiver(**kw), blk, f"{label} off", True)
+    return runs
+
+
+def step_ms(torch, fn) -> tuple:
+    """(min, mean) ms of fn() over 3 batches of 2 calls, CUDA events."""
+    batches = [cuda_ms(fn, 2) for _ in range(3)]
+    return min(batches), sum(batches) / len(batches)
+
+
+def phase_sharded(torch, dev, smi, sigs) -> list:
+    """The sharded builds at world size 1 over NCCL (phase 14 of the
+    module docstring). Returns the launch counts of each run."""
+    from dvbs_tpu_torch import backend, entry
+    from dvbs_tpu_torch.models.bank_stream import DVBS2BankStream
+    from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver, run_fec
+    from dvbs_tpu_torch.parallel import collectives
+    from dvbs_tpu_torch.parallel.mesh import (build_carrier_bank,
+                                              build_carrier_bank_sharded,
+                                              build_multi_carrier)
+    from dvbs_tpu_torch.parallel.timeshard import build_time_sharded
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        collectives.init_mesh(1, 0, dev, os.path.join(tmp, "store"))
+        try:
+            # the multi-carrier step: 8 distinct carriers on one rank
+            samples = entry.multi_carrier_signals(N_CARRIERS, 2 * entry.BLOCK)
+            step, example, mesh = build_multi_carrier(
+                1, carriers_per_device=N_CARRIERS)
+            assert example.shape == samples.shape
+            backend.reset_launches()
+            with torch.no_grad():
+                out = step(samples)
+            torch.cuda.synchronize()
+            launches = dict(backend.LAUNCHES)
+            runs.append(launches)
+            ok = out["ldpc_ok"].cpu().numpy()
+            locked = int(out["locked"][0])
+            ms = step_ms(torch, lambda: step(samples))
+            print(f"build_multi_carrier(1, 8) over NCCL, mesh {mesh.shape} "
+                  f"on {mesh.device}: ldpc_ok {int(ok.sum())}/{ok.size}, "
+                  f"locked {locked}; step from the host {ms[0]:.3f} ms min, "
+                  f"{ms[1]:.3f} mean; launches {launches}")
+            assert ok.all() and locked == ok.size, (ok, locked)
+            assert launches["resample_farrow"] > 0
+
+            # the main path's bank, sharded, streamed
+            cs4, sents = sigs["s2"]
+            program = build_carrier_bank_sharded(
+                1, carriers_per_device=N_CARRIERS, mc=MC, short=SHORT,
+                ingest="cs4")
+            st = DVBS2BankStream(N_CARRIERS, mc=MC, short=SHORT,
+                                 ingest="cs4", program=program, device=dev)
+            runs.append(stream_bank(torch, st, cs4, sents, E2E_BLOCKS,
+                                    "sharded bank stream",
+                                    kernels=("resample_farrow",)))
+            n = 2 * st.block_symbols
+            host_in = torch.from_numpy(np.stack([s[:n] for s in cs4]))
+            dev_in = host_in.to(dev)
+            sharded = program[0]
+            bank, _ = build_carrier_bank(N_CARRIERS, mc=MC, short=SHORT,
+                                         block_symbols=st.block_symbols,
+                                         fec="xla", ingest="cs4",
+                                         device=dev)
+            with torch.no_grad():
+                a, b = bank(dev_in), sharded(dev_in)
+                for k in a:
+                    assert torch.equal(a[k], b[k]), f"sharded bank: {k}"
+                local = sharded.bank(dev_in)
+                local.pop("llrs")               # the step keeps them local
+                # in turns, the order reversed every other turn, so that a
+                # drift of the host's speed falls on all; per call also the
+                # host's enqueue time and the allocator's cudaMalloc and
+                # cudaFree calls
+                variants = (("unsharded", lambda: bank(dev_in)),
+                            ("sharded", lambda: sharded(dev_in)),
+                            ("sharded from the host",
+                             lambda: sharded(host_in)))
+                times = {k: [] for k, _ in variants}
+                enq = {k: [] for k, _ in variants}
+                mallocs = {k: 0 for k, _ in variants}
+                for turn in range(3):
+                    for label, fn in variants[::1 - 2 * (turn % 2)]:
+                        torch.cuda.synchronize()
+                        m0 = torch.cuda.memory_stats()
+                        t0 = time.perf_counter()
+                        fn()
+                        enq[label].append((time.perf_counter() - t0) * 1e3)
+                        times[label].append(cuda_ms(fn, 2))
+                        m1 = torch.cuda.memory_stats()
+                        mallocs[label] += sum(
+                            m1.get(k, 0) - m0.get(k, 0)
+                            for k in ("num_device_alloc", "num_device_free"))
+                gather = cuda_ms(lambda: collectives.gather_dict(local), 10,
+                                 batches=3)
+            print(f"sharded bank step [{N_CARRIERS} x {n} cs4 samples, "
+                  f"{N_CARRIERS * st.F} frames, decode_qc 12 sweeps], 3 "
+                  f"turns (order reversed every other turn): " + "; ".join(
+                      f"{k}: ms {[round(t, 3) for t in times[k]]} (min "
+                      f"{min(times[k]):.3f}), host enqueue ms "
+                      f"{[round(t, 1) for t in enq[k]]}, cudaMalloc + "
+                      f"cudaFree calls {mallocs[k]}" for k in times)
+                  + f"; the gather of its {len(local)} outputs alone "
+                  f"{gather:.4f} ms; outputs equal the unsharded bank's; "
+                  f"card {smi}")
+
+            # the time-sharded step: one rank, its ring the identity
+            for short, block, y in (
+                    (True, entry.BLOCK, samples[0, 0] + 1j * samples[0, 1]),
+                    (False, SLICE_BLOCK, sigs["qpsk12"][0])):
+                step, example, mesh, A = build_time_sharded(
+                    1, mc=4, short=short, block_symbols=block)
+                shard = np.stack([y[:A].real, y[:A].imag]
+                                 ).astype(np.float32)[None]
+                assert shard.shape == example.shape
+                backend.reset_launches()
+                with torch.no_grad():
+                    out = step(shard)
+                torch.cuda.synchronize()
+                launches = dict(backend.LAUNCHES)
+                runs.append(launches)
+                rx = DVBS2Receiver(mc=4, short=short, block_symbols=block)
+                window = np.concatenate([shard[0]] * (step.hops + 1),
+                                        axis=-1)[:, :2 * block]
+                with torch.no_grad():
+                    ref = {k: v[0] for k, v in rx.program(
+                        torch.from_numpy(window)[None].to(dev)).items()}
+                    ref.pop("scatter")
+                    ref.update(run_fec(rx.program, ref.pop("llrs"),
+                                       rx.max_ldpc_trials, "xla"))
+                assert out.keys() == ref.keys(), (out.keys(), ref.keys())
+                for k in ref:
+                    assert torch.equal(out[k][0], ref[k]), \
+                        f"time-sharded {block}: {k} differs from the serial"
+                ms = step_ms(torch, lambda: step(shard))
+                print(f"build_time_sharded(1) at {block} symbols "
+                      f"({'short' if short else 'normal'} frames, A {A}, "
+                      f"{step.hops} hops): every output equal to the serial "
+                      f"program + full-budget FEC on the wrapped window; "
+                      f"ldpc_ok {out['ldpc_ok'][0].tolist()}; step from the "
+                      f"host {ms[0]:.3f} ms min, {ms[1]:.3f} mean; launches "
+                      f"{launches}")
+                assert launches["resample_farrow"] > 0
+
+            program, (example,) = entry.entry()
+            with torch.no_grad():
+                out = program(example)
+            torch.cuda.synchronize()
+            assert out["llrs"].shape == (1, 2, 16200) and \
+                bool(torch.isfinite(out["llrs"]).all())
+            print(f"entry(): program on {example.device}, llrs "
+                  f"{tuple(out['llrs'].shape)} finite")
+        finally:
+            collectives.close_mesh()
+    return runs
+
+
 LAYERS_S2 = ("frontend", "timing", "plsync", "phase", "demap", "ldpc",
              "bch_pack")
 LAYERS_DVBS = ("frontend", "timing", "carrier", "viterbi", "ber_pack")
@@ -1420,6 +1668,10 @@ def main() -> int:
     stamp("single-carrier DVB-S")
     runs.append(phase_first_bank(torch, dev, smi, *sigs["dvbs"]))
     stamp("first-block DVB-S bank")
+    runs += phase_equalizer(torch, sigs)
+    stamp("equalizer")
+    runs += phase_sharded(torch, dev, smi, sigs)
+    stamp("sharded builds at world size 1")
     kernels_line(rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ from .. import backend, tables
 
 TS = tables.TILE_SYM
 EXTRA = 4                   # halo rows after each chunk of TC tiles
+HBM_BPS = 3.35e12           # the H100 SXM's published HBM rate, bytes/s
 
 # stage name -> id in csrc/resample_probe.cu, in the TPU probes' order
 STAGES = {"v0": 0, "v1": 1, "v2": 2, "v3": 3, "v4": 4, "v5": 5, "v6": 6,
@@ -333,7 +334,9 @@ def run_all(device, sizes=((2, 4, 8), (8, 270, 8)), split_shape=(8, 552960),
     """Every stage against its plain version on `device` (a card), at
     each (C, nck, TC) of `sizes` and the split at `split_shape`: a list
     of dicts (stage, shape, max_abs_err, ms by CUDA events around
-    eager launches, device_ms from a replayed CUDA graph, plain_ms; the
+    eager launches, device_ms from a replayed CUDA graph, plain_ms,
+    bytes (inputs read and output written once), hbm_bound_ms (those
+    bytes at HBM_BPS) and, for v0, library_ms (torch.mul, graph-timed); the
     split adds prep_ms and kernel_ms, graph times too, and its error is
     against kernel B's plain version). Raises if a stage does not build
     or launch."""
@@ -344,12 +347,18 @@ def run_all(device, sizes=((2, 4, 8), (8, 270, 8)), split_shape=(8, 552960),
             inp = make_inputs(stage, device, C=C, nck=nck, TC=TC)
             got, ref = stage_cuda(inp), stage_plain(inp)
             torch.cuda.synchronize()
+            nbytes = got.numel() * got.element_size() + sum(
+                v.numel() * v.element_size() for v in inp.values()
+                if isinstance(v, torch.Tensor))
             rows.append(dict(
                 stage=stage, shape=[inp["C"], inp["ntp"], TS],
                 max_abs_err=float((got - ref).abs().max()),
                 ms=cuda_ms(lambda: stage_cuda(inp), reps),
                 device_ms=graph_ms(lambda: stage_cuda(inp)),
-                plain_ms=cuda_ms(lambda: stage_plain(inp), 3)))
+                plain_ms=cuda_ms(lambda: stage_plain(inp), 3),
+                bytes=nbytes, hbm_bound_ms=nbytes / HBM_BPS * 1e3,
+                library_ms=graph_ms(lambda: torch.mul(inp["a"], 2.0))
+                if stage == "v0" else None))
     C, S = split_shape
     sp = make_split_inputs(device, C, S)
     nt = sp["rb"].shape[1]
@@ -394,6 +403,16 @@ def main() -> int:
                      f"kernel B {r['err_vs_kernel_b']:.3g})")
         equal = "equal to plain" if r["max_abs_err"] == 0 else \
             f"max abs err {r['max_abs_err']:.3g}"
+        if r.get("hbm_bound_ms") is not None:
+            share = r["hbm_bound_ms"] / r["device_ms"]
+            extra += (f"; its {r['bytes']} bytes at {HBM_BPS:.3g} B/s "
+                      f"(HBM) {r['hbm_bound_ms']:.4f} ms = " + (
+                          f"{share:.2f} of the kernel's time" if share <= 1
+                          else "more than the kernel's time (its replayed "
+                          "bytes sit in the L2, whose rate is not "
+                          "published): no share"))
+        if r.get("library_ms") is not None:
+            extra += f"; torch.mul {r['library_ms']:.4f} ms (CUDA graph)"
         print(f"{r['stage']:7s} {r['shape']}: {equal}; kernel "
               f"{r['device_ms']:.4f} ms on the device (CUDA graph), "
               f"{r['ms']:.4f} ms a launch from the host, plain "

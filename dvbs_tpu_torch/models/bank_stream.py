@@ -145,8 +145,11 @@ class DVBS2BankStream:
         """blocks [C, n] complex64 -> device input in the bank's ingest
         format (cs4 packs on host; cs8 quantizes at 4.5 bits rms).
         Pre-packed cs4 feeds (uint8 FIFOs, 1 byte = 1 sample) pass
-        through untouched. Returns a tensor on the bank's device."""
-        dev = self._build_opts["device"]
+        through untouched. Returns a tensor on the bank's device, or on
+        the step's `input_device` where it names one (a sharded step
+        takes the host block and each rank uploads its own carriers)."""
+        dev = getattr(self.step_fn, "input_device",
+                      self._build_opts["device"])
         if blocks.dtype == np.uint8:
             return torch.from_numpy(np.ascontiguousarray(blocks)).to(dev)
         if self.ingest == "cs4":

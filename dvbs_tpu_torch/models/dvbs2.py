@@ -17,8 +17,9 @@ estimates for streams that hold dummy PLFRAMEs.
 symbol program at C = 1, the FEC (the float decode_qc, or the int8
 layered decoder's kernel on the F frames as they are), the two-pass
 escalation, and the host side (sync-quality gate, BCH repair of flagged
-frames). Not ported: `equalize=True` (ops/equalizer, ROADMAP queue 1)
-raises.
+frames). `equalize=True` inserts the block LMS equalizer
+(ops/equalizer.lms_equalize) after timing recovery and before PL sync,
+where dvbs_tpu inserts it.
 """
 from __future__ import annotations
 
@@ -31,22 +32,25 @@ from torch.profiler import record_function
 
 from ..spec import bch_spec, modcod, scrambling
 from .. import backend, tables
-from ..ops import (bch, demap, frontend, interleaver, ldpc_kernel, ldpc_qc,
-                   plhdr, plphase, plsync)
+from ..ops import (bch, demap, equalizer, frontend, interleaver,
+                   ldpc_kernel, ldpc_qc, plhdr, plphase, plsync)
 
 
 class SymbolProgram(nn.Module):
     """The per-block symbol program of one receiver geometry. Its
     buffers are the constant tables (tables.receiver_tables, or a dict
     of the same keys); forward maps samples [C, 2, n] (int8 or float,
-    stacked I/Q) to per-carrier outputs."""
+    stacked I/Q) to per-carrier outputs. With `equalize` the timing-
+    recovered symbols go through ops/equalizer.lms_equalize."""
 
     def __init__(self, cfg: modcod.ModcodConfig, block_symbols: int,
                  n_frames: int, edge_margin: int, device,
-                 np_tables: dict | None = None, dummy_aware: bool = False):
+                 np_tables: dict | None = None, dummy_aware: bool = False,
+                 equalize: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dummy_aware = dummy_aware
+        self.equalize = equalize
         self.F = n_frames
         self.edge_margin = edge_margin
         np_tables = np_tables or tables.receiver_tables(cfg, block_symbols)
@@ -81,6 +85,9 @@ class SymbolProgram(nn.Module):
             z, _, _ = frontend.recover_symbols_full(
                 y, self.mid_taps, self.fir_mid, self.farrow_coef,
                 self.farrow_band, n_windows=16)
+        if self.equalize:
+            with record_function("equalizer"):
+                z = equalizer.lms_equalize(z)
         with record_function("plsync"):
             score, _ = plsync.correlate(z, self.corr_T)
             locate = plsync.locate_frames_chain if self.dummy_aware \
@@ -213,10 +220,6 @@ class DVBS2Receiver:
                  np_tables: dict | None = None):
         if fec not in ("xla", "pallas"):
             raise ValueError(f"unknown fec {fec!r}")
-        if equalize:
-            raise NotImplementedError(
-                "equalize=True (ops/equalizer.lms_equalize) is not ported "
-                "yet: ROADMAP queue 1")
         self.cfg = modcod.get_config(mc, short=short, pilots=pilots)
         self.block_symbols = block_symbols
         self.max_ldpc_trials = max_ldpc_trials
@@ -230,7 +233,8 @@ class DVBS2Receiver:
         self.device = backend.resolve_device(device)
         self.program = SymbolProgram(self.cfg, block_symbols, self.n_frames,
                                      self.edge_margin, self.device,
-                                     np_tables, dummy_aware=dummy_aware)
+                                     np_tables, dummy_aware=dummy_aware,
+                                     equalize=equalize)
         self._kt = device_kernel_tables(self.program)
         # two-pass escalation: every block pays a short pass, the rare
         # unconverged block reruns with the full budget

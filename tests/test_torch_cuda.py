@@ -26,7 +26,13 @@ Tolerances and why:
   same on the CPU: frame verdicts, trials and bytes exact;
 - the single-carrier DVB-S stream (rate 3/4, found by the lock search)
   and the first-block DVB-S bank on the card against the same on the
-  CPU: TS bytes, decoded bits and re-encode BER exact (12 dB).
+  CPU: TS bytes, decoded bits and re-encode BER exact (12 dB);
+- DVBS2Receiver(equalize=True) on the card against the CPU: frame
+  verdicts and bytes exact, the equalized symbols within 1e-4 max abs
+  (cuBLAS and cuSOLVER against the CPU's BLAS and LAPACK);
+- the sharded builds at world size 1 over NCCL against the unsharded
+  programs on the card: every output exact (the same kernels on the
+  same inputs).
 """
 import numpy as np
 import pytest
@@ -437,3 +443,99 @@ def test_dvbs_stream_and_first_bank_on_the_card(dev):
     assert (got[1]["ber"] < 0.02).all()
     for k in ("bits", "ber"):
         np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+
+
+def _echo_block(B=1 << 15):
+    """QPSK 1/2 short frames through the 2-ray echo of the JAX package's
+    tests/test_equalizer.py (9 dB, seed 6): one block."""
+    cfg = modcod.get_config(4, short=True)
+    pkts = dvbs2_mod.random_ts_packets(120, seed=5)
+    tx = dvbs2_mod.bbframes_to_plframes(
+        dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+    x = channel.shape(tx, sps=2)
+    echo = np.zeros(3, np.complex64)
+    echo[0], echo[2] = 1.0, 0.18 - 0.1j
+    y = channel.impair(np.convolve(x, echo)[:len(x)], snr_db=9.0,
+                       cfo=0.004 * np.pi, seed=6)
+    return y[:2 * B]
+
+
+def test_equalizer_receiver_on_the_card(dev, monkeypatch):
+    from dvbs_tpu_torch.ops import equalizer
+    blk = _echo_block()
+    kw = dict(mc=4, short=True, block_symbols=1 << 15, equalize=True,
+              fec="pallas")
+    seen, orig = [], equalizer.lms_equalize
+    monkeypatch.setattr(equalizer, "lms_equalize",
+                        lambda z: seen.append((z, orig(z))) or seen[-1][1])
+    backend.reset_launches()
+    got = DVBS2Receiver(**kw).process_symbols_block(blk)
+    assert backend.LAUNCHES["resample_farrow"] == 1
+    ref = DVBS2Receiver(device="cpu", **kw).process_symbols_block(blk)
+    assert ref.frame_ok.all() and seen[0][0].device.type == dev.type
+    for name in ("frame_ok", "ldpc_trials", "starts", "bbframes"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=name)
+    z, eq = seen[0]
+    assert float((eq.cpu() - orig(z.cpu())).abs().max()) <= 1e-4
+
+
+@pytest.fixture
+def nccl_one(dev, tmp_path):
+    """A process group of one NCCL rank on the card."""
+    from dvbs_tpu_torch.parallel import collectives
+    yield collectives.init_mesh(1, 0, dev, str(tmp_path / "store"))
+    collectives.close_mesh()
+
+
+def test_sharded_builds_at_world_one_on_the_card(nccl_one):
+    """build_multi_carrier, build_carrier_bank_sharded and
+    build_time_sharded at world size 1, no device named, equal to the
+    unsharded programs on the card."""
+    from dvbs_tpu_torch import entry
+    from dvbs_tpu_torch.models.dvbs2 import run_fec
+    from dvbs_tpu_torch.parallel import timeshard
+    dev = nccl_one
+    samples = entry.multi_carrier_signals(2, 2 * entry.BLOCK)
+    rx = DVBS2Receiver(mc=4, short=True, block_symbols=entry.BLOCK)
+    step, _, mesh_ = mesh.build_multi_carrier(1, carriers_per_device=2)
+    assert mesh_.device == dev and rx.device.type == dev.type
+    backend.reset_launches()
+    with torch.no_grad():
+        out = step(samples)
+        ref = rx.program(torch.from_numpy(samples).to(dev))
+        fd = run_fec(rx.program, ref["llrs"].reshape(-1, 16200), 32, "xla")
+    assert backend.LAUNCHES["resample_farrow"] == 2
+    assert out["ldpc_ok"].all() and int(out["locked"][0]) == 4
+    assert torch.equal(out["hard"].reshape(-1, 16200), fd["hard"])
+    assert torch.equal(out["pls"], ref["pls"])
+
+    x = np.stack([pack_cs4(samples[c, 0] + 1j * samples[c, 1])
+                  for c in range(2)])
+    bs = entry.BLOCK
+    sharded, _, escalate = mesh.build_carrier_bank_sharded(
+        1, carriers_per_device=2, mc=4, short=True, block_symbols=bs,
+        ingest="cs4")
+    bank, _, bank_esc = mesh.build_carrier_bank(
+        2, mc=4, short=True, block_symbols=bs, fec="xla", ingest="cs4",
+        stream_outputs=True)
+    with torch.no_grad():
+        a, b = sharded(x), bank(torch.from_numpy(x).to(dev))
+        ea, eb = escalate(a["llrs"]), bank_esc(b["llrs"])
+    for got, want in ((a, b), (ea, eb)):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+    step, example, _, A = timeshard.build_time_sharded(1)
+    shard = samples[:1, :, :A]
+    with torch.no_grad():
+        out = step(shard)
+        window = torch.from_numpy(np.concatenate([shard[0]] * 3, axis=-1)
+                                  [:, :2 * bs])[None].to(dev)
+        ref = {k: v[0] for k, v in rx.program(window).items()}
+        ref.pop("scatter")
+        ref.update(run_fec(rx.program, ref.pop("llrs"), 32, "xla"))
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert torch.equal(out[k][0], ref[k]), k

@@ -40,6 +40,9 @@ bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib", "dvbs_tpu", "bench"))
 assert "torch" in sys.modules
 assert len(names) > 40, names
+for m in ("ops.equalizer", "parallel.collectives", "parallel.timeshard",
+          "parallel.mesh", "entry"):
+    assert "dvbs_tpu_torch." + m in names, m
 print(len(names), "modules;", "foreign modules:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -124,6 +127,43 @@ def test_entry_point_device(name, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         make(device=None)
     assert make(device="cpu") is not None
+
+
+def _sharded_entry_points():
+    from dvbs_tpu_torch import entry
+    from dvbs_tpu_torch.parallel import mesh, timeshard
+    s2 = dict(mc=4, short=True, block_symbols=1 << 15)
+    return {
+        "build_multi_carrier": lambda **kw: mesh.build_multi_carrier(
+            1, **s2, **kw),
+        "build_carrier_bank_sharded":
+            lambda **kw: mesh.build_carrier_bank_sharded(1, **s2, **kw),
+        "build_time_sharded": lambda **kw: timeshard.build_time_sharded(
+            1, **s2, **kw),
+        "build_grid_sharded": lambda **kw: timeshard.build_grid_sharded(
+            1, 1, **s2, **kw),
+        "entry": lambda **kw: entry.entry(**kw),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "build_multi_carrier", "build_carrier_bank_sharded",
+    "build_time_sharded", "build_grid_sharded", "entry"])
+def test_sharded_entry_point_device(name, monkeypatch, tmp_path):
+    """The sharded builds and entry(): no device named and no card
+    raises RuntimeError; device="cpu" builds on a gloo rank."""
+    from dvbs_tpu_torch.parallel import collectives
+    make = _sharded_entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make(device=None)
+    collectives.init_mesh(1, 0, "cpu", str(tmp_path / "store"))
+    try:
+        assert make(device="cpu") is not None
+    finally:
+        collectives.close_mesh()
 
 
 def test_cli_device(tmp_path, monkeypatch):

@@ -349,8 +349,9 @@ def test_receiver_escalates_and_repairs():
 def test_receiver_arguments():
     with pytest.raises(ValueError):
         DVBS2Receiver(fec="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DVBS2Receiver(equalize=True, device="cpu")
+    eq = DVBS2Receiver(equalize=True, device="cpu")
+    assert eq.program.equalize and not DVBS2Receiver(
+        device="cpu").program.equalize
     with pytest.raises(ValueError):
         DVBS2Receiver(short=False, block_symbols=1 << 15, device="cpu")
     rx = DVBS2Receiver(mc=4, short=True, max_ldpc_trials=8, device="cpu")
