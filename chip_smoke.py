@@ -22,7 +22,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and every padding entry), at F = 1 and 130 frames through
    decode_calls, and timed at 0, 3, 5, 8 and 10 fixed sweeps. hard, n_bad
    and trials must be equal;
-4. kernel B (barrel+Farrow resampler) against its plain version at
+4. kernel B (barrel+Farrow resampler, positions in, symbols out)
+   against its plain version (shifts_and_band, then resample_plain) at
    C=8 and each bank's symbols per block (552960 for QPSK 1/2; 377920,
    284288 and 227392 for the pilots banks; 262144 for DVB-S; 65536 for
    the first-block DVB-S bank; 32768 for the multi-carrier step), at
@@ -30,9 +31,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    short-frame receiver's and time shard's; at the later phases' [4,
    1072832] (the wideband CLI's bank), [3, 98112] (3 carriers x 2
    frames), [2, 131072] and [2, 65536] (the DVB-S stream banks of 2
-   carriers) and [1, 65536] (their lock), with drifting positions of
-   both signs: max abs error <= 1e-5, each timed against its bound
-   (the four shapes below the banks' also by CUDA-graph replay);
+   carriers), [1, 65536] (their lock) and [1, 262144] (the DVB-S
+   bank's lock), with drifting positions of both signs: the shifts rb
+   and band coordinates u the kernel derives equal to
+   shifts_and_band's bit for bit, the output within 1e-5; each
+   timed eagerly and by CUDA-graph replay against its bound, beside
+   shifts_and_band alone (the glue the kernel absorbed) and a launch
+   floor (torch.mul over the output's bytes); the kernel's SASS has no
+   shared-memory load;
 5. kernel C (radix-8 Viterbi ACS + traceback) against its plain version,
    bit for bit on every output bit: noisy codewords at the DVB-S bank's
    shape [4096, 704, 2] with every third Y erased (whose segment cores
@@ -241,10 +247,6 @@ SLICE = {"qpsk12": (4, False, 5.0, None), "8psk34": (14, False, 11.0, None),
 DVBS_SINGLE = {"1/2": 8.0, "2/3": 9.0, "3/4": 10.0, "5/6": 11.0,
                "7/8": 12.0}
 FIRST_BANK_BLOCK = 1 << 17      # build_dvbs_bank's block, samples
-# kernel B's shapes below the banks', timed also by CUDA-graph replay:
-# the single-carrier block, the first-block DVB-S bank, the
-# multi-carrier step and the short-frame receiver
-SMALL_B = ((1, 1 << 17), (8, 1 << 16), (8, 1 << 15), (1, 1 << 15))
 # the equalizer phase: name -> short frames, block symbols, packets (QPSK
 # 1/2 through the JAX package's test echo)
 EQ = {"eq_short": (True, 1 << 15, 120), "eq_normal": (False, 1 << 17, 200)}
@@ -856,11 +858,14 @@ def phase_ldpc(torch, dev):
 def resample_case(torch, dev, C: int, S: int):
     """Kernel B's inputs at [C, S] (noise, a timing path per carrier at
     +-1e-5 of clock offset) and its output against the plain version:
-    (y, u, rb, bias, coef, max abs err); raises above RESAMPLE_TOL."""
+    (y, t, coef, band, max abs err). Raises above RESAMPLE_TOL, or where
+    the shifts rb and band coordinates u the kernel derived differ from
+    shifts_and_band's in a bit."""
     from dvbs_tpu_torch import tables
     from dvbs_tpu_torch.ops import resample_kernel as rk
     coef_np, fmid, fhalf = tables.farrow_coeffs()
     coef = torch.from_numpy(coef_np).to(dev)
+    band = (fmid, fhalf)
     n2 = 2 * S
     rng = np.random.default_rng(2)
     y = torch.from_numpy((rng.normal(size=(C, n2)) + 1j * rng.normal(
@@ -870,24 +875,36 @@ def resample_case(torch, dev, C: int, S: int):
                   (1 if c % 2 == 0 else -1) * (1 + 0.2 * c) * 1e-5 * k
                   for c in range(C)]).astype(np.float32)
     t = torch.from_numpy(t).to(dev)
-    rb, u, bias = rk.shifts_and_band(t, (fmid, fhalf))
-    got = rk.resample_cuda(y, u, rb, bias, coef, S)
+    u, rb, bias = rk.shifts_and_band(t, band)
+    ku, krb = torch.empty_like(u), torch.empty_like(rb)
+    got = rk.resample_cuda(y, t, coef, band, band_out=(ku, krb))
     ref = rk.resample_plain(y, u, rb, bias, coef, S)
+    if not torch.equal(krb, rb):
+        raise AssertionError(f"kernel B [{C}, {S}]: the kernel's shifts rb "
+                             f"differ from shifts_and_band's at "
+                             f"{int((krb != rb).sum())} tiles")
+    if not torch.equal(ku.view(torch.int32), u.view(torch.int32)):
+        raise AssertionError(f"kernel B [{C}, {S}]: the kernel's band "
+                             f"coordinates u differ from shifts_and_band's "
+                             f"at {int((ku != u).sum())} symbols")
+    if not torch.equal(rk.resample_cuda(y, t, coef, band), got):
+        raise AssertionError(f"kernel B [{C}, {S}]: the output differs "
+                             f"with and without band_out")
     err = float(torch.max(torch.abs(got - ref)))
     if not err <= RESAMPLE_TOL:
         raise AssertionError(f"kernel B [{C}, {S}]: max abs error {err} > "
                              f"{RESAMPLE_TOL}")
     COMPARED["resample_farrow"].add((C, S))
-    return y, u, rb, bias, coef, err
+    return y, t, coef, band, err
 
 
 def resample_shapes() -> tuple:
     """Kernel B's [C, S] on the main paths: the QPSK 1/2 bank, the three
     pilots banks (shift bits 10, 9, 9, 8), the DVB-S bank, the single
     carrier, the first-block bank, short frames; the wideband CLI's 4
-    DVB-S2 carriers, 3 carriers x 2 frames, and the DVB-S stream banks
-    of 2 carriers (the wideband CLI's and the watchdog's) with their
-    one-carrier locks."""
+    DVB-S2 carriers, 3 carriers x 2 frames, the DVB-S stream banks of 2
+    carriers (the wideband CLI's and the watchdog's) with their
+    one-carrier locks, and the DVB-S bank's lock."""
     from dvbs_tpu_torch.parallel.mesh import bank_block_symbols
     return ((8, 552960), (8, 377920), (8, 284288), (8, 227392),
             (8, DVBS_BLOCK // 2), (1, SLICE_BLOCK),
@@ -895,37 +912,69 @@ def resample_shapes() -> tuple:
             (len(WIDE_S2), bank_block_symbols(len(WIDE_S2), mc=MC)),
             (3, bank_block_symbols(3, mc=MC, frames_total=6)),
             (len(WIDE_DVBS), WIDE_DVBS_BLOCK), (2, WATCH_BLOCK // 2),
-            (1, WATCH_BLOCK // 2))
+            (1, WATCH_BLOCK // 2), (1, DVBS_BLOCK // 2))
+
+
+def sass_counts(so: str, kernel: str) -> dict:
+    """Instruction counts by opcode in the SASS of the one function of the
+    built library whose name holds `kernel` (cuobjdump -sass)."""
+    from dvbs_tpu_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if re.search(r"(?<![A-Za-z_])" + kernel, f.split("\n", 1)[0])]
+    if len(funcs) != 1:
+        raise AssertionError(f"{len(funcs)} functions named {kernel} in "
+                             f"{so}")
+    # opcodes of the instructions that can run (not those under @!PT,
+    # the never-true predicate of the compiler's padding)
+    ops = [op for pred, op in re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", funcs[0])
+        if pred.strip() != "@!PT"]
+    return {op: ops.count(op) for op in sorted(set(ops))}
 
 
 def phase_resample(torch, dev):
-    """Kernel B against its plain version at each of resample_shapes().
-    The kernels row reports the first (the headline bank's)."""
+    """Kernel B against its plain version at each of resample_shapes(),
+    its SASS free of shared-memory loads. The kernels row reports the
+    first shape (the headline bank's)."""
+    from dvbs_tpu_torch.kernels import build
     from dvbs_tpu_torch.kernels import probe_resample as pr
     from dvbs_tpu_torch.ops import resample_kernel as rk
+    ops = sass_counts(str(build.library_path()), "farrow_kernel")
+    print(f"kernel B SASS: {sum(ops.values())} instructions, FFMA "
+          f"{ops.get('FFMA', 0)}, LDG {ops.get('LDG', 0)}, LDS "
+          f"{ops.get('LDS', 0)}, STG {ops.get('STG', 0)}")
+    if any(op.startswith("LDS") for op in ops):
+        raise AssertionError(f"kernel B loads from shared memory: {ops}")
     row = None
     for C, S in resample_shapes():
-        y, u, rb, bias, coef, err = resample_case(torch, dev, C, S)
-        ms = cuda_ms(lambda: rk.resample_cuda(y, u, rb, bias, coef, S), 20,
+        y, t, coef, band, err = resample_case(torch, dev, C, S)
+        ms = cuda_ms(lambda: rk.resample_cuda(y, t, coef, band), 20,
                      batches=3)
-        plain_ms = cuda_ms(lambda: rk.resample_plain(y, u, rb, bias, coef,
-                                                     S), 3)
-        # bytes: y, u, rb, coef in, out written. Operations: 10 taps x (9
+        plain_ms = cuda_ms(lambda: rk.resample_plain(
+            y, *rk.shifts_and_band(t, band), coef, S), 3)
+        # device times alone, launches replayed from a CUDA graph: the
+        # kernel; shifts_and_band, the glue the kernel absorbed; and a
+        # launch floor, torch.mul over as many bytes as the output's
+        out = rk.resample_cuda(y, t, coef, band)
+        g_ms = pr.graph_ms(lambda: rk.resample_cuda(y, t, coef, band))
+        glue_ms = pr.graph_ms(lambda: rk.shifts_and_band(t, band))
+        floor_ms = pr.graph_ms(lambda: torch.mul(out, 2.0))
+        # bytes: y, t, coef in, out written. Operations: 10 taps x (9
         # multiply-adds of Horner's rule + 2 for re and im)
-        nbytes = y.numel() * 8 + u.numel() * 4 + rb.numel() * 4 + \
-            coef.numel() * 4 + C * S * 8
+        nbytes = y.numel() * 8 + t.numel() * 4 + coef.numel() * 4 + \
+            C * S * 8
         b = bound(nbytes, C * S * 10 * 22, F32_OPS)
-        graph = ""
-        if (C, S) in SMALL_B:
-            # the device time alone: launches replayed from a CUDA graph
-            g_ms = pr.graph_ms(lambda: rk.resample_cuda(y, u, rb, bias,
-                                                        coef, S))
-            graph = (f", graph-replayed {g_ms:.4f} ms = "
-                     f"{b['bound_ms'] / g_ms:.2f} of its bound")
-        print(f"kernel B [{C}, {S}] (bias {bias}): max abs err {err:.3g} "
-              f"(tol {RESAMPLE_TOL}), kernel {ms:.3f} ms{graph}, plain "
-              f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']})")
+        print(f"kernel B [{C}, {S}]: max abs err {err:.3g} (tol "
+              f"{RESAMPLE_TOL}), rb and u equal to shifts_and_band's; "
+              f"kernel {ms:.4f} ms eager, graph-replayed {g_ms:.4f} ms = "
+              f"{b['bound_ms'] / g_ms:.2f} of its bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); shifts_and_band "
+              f"alone {glue_ms:.4f} ms graph-replayed; launch floor "
+              f"(torch.mul over the output) {floor_ms:.4f} ms "
+              f"graph-replayed; plain {plain_ms:.3f} ms")
         if row is None:
             row = dict(name="resample_farrow", route="cuda",
                        source="dvbs_tpu_torch/csrc/resample_farrow.cu",

@@ -25,12 +25,13 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every pointer and the stream are void*
 SIGNATURES = {
     "ldpc_layered_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P],
-    "resample_farrow": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "resample_farrow": [_P, _I, _I, _P, _I, _I, _P, _F, _F, _F, _F, _P, _P,
+                        _P, _P],
     "viterbi_acs": [_P, _I, _I, _P, _P],
     "resample_probe": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "resample_probe_prep": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],

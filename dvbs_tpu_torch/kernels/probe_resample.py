@@ -276,20 +276,21 @@ def split_kernel_cuda(planes, u, rb, coef, S: int) -> torch.Tensor:
 def make_split_inputs(device, C: int = 8, S: int = 552960, seed: int = 0):
     """Kernel B's operands at [C, S] symbols (552960: the 8-carrier QPSK
     1/2 bank's block): y2 [C, 2S] complex64, positions drifting with
-    both signs, and from them rb, u, bias (ops/resample_kernel), coef."""
+    both signs t, the Farrow band, and from them rb, u, bias
+    (ops/resample_kernel), coef."""
     from ..ops import resample_kernel as rk
     rng = np.random.default_rng(seed)
     n2 = 2 * S
     y = torch.from_numpy((rng.normal(size=(C, n2)) + 1j * rng.normal(
         size=(C, n2))).astype(np.complex64)).to(device)
     k = np.arange(S)
-    t = np.stack([2.0 * k + 0.3 + 0.17 * c +
-                  (1 if c % 2 == 0 else -1) * (1 + 0.2 * c) * 1e-5 * k
-                  for c in range(C)]).astype(np.float32)
+    t = torch.from_numpy(np.stack([
+        2.0 * k + 0.3 + 0.17 * c +
+        (1 if c % 2 == 0 else -1) * (1 + 0.2 * c) * 1e-5 * k
+        for c in range(C)]).astype(np.float32)).to(device)
     coef_np, fmid, fhalf = tables.farrow_coeffs()
-    rb, u, bias = rk.shifts_and_band(torch.from_numpy(t).to(device),
-                                     (fmid, fhalf))
-    return dict(y2=y, u=u, rb=rb, bias=bias, S=S,
+    u, rb, bias = rk.shifts_and_band(t, (fmid, fhalf))
+    return dict(y2=y, t=t, band=(fmid, fhalf), u=u, rb=rb, bias=bias, S=S,
                 coef=torch.from_numpy(coef_np).to(device))
 
 
@@ -367,8 +368,7 @@ def run_all(device, sizes=((2, 4, 8), (8, 270, 8)), split_shape=(8, 552960),
     got = split_kernel_cuda(planes, sp["u"], sp["rb"], sp["coef"], S)
     ref = rk.resample_plain(sp["y2"], sp["u"], sp["rb"], sp["bias"],
                             sp["coef"], S)
-    fused = rk.resample_cuda(sp["y2"], sp["u"], sp["rb"], sp["bias"],
-                             sp["coef"], S)
+    fused = rk.resample_cuda(sp["y2"], sp["t"], sp["coef"], sp["band"])
     torch.cuda.synchronize()
     prep_err = max(float((p - r).abs().max())
                    for p, r in zip(planes, ref_planes))
@@ -385,7 +385,7 @@ def run_all(device, sizes=((2, 4, 8), (8, 270, 8)), split_shape=(8, 552960),
             split_prep_cuda(sp["y2"], nt, sp["bias"]), sp["u"], sp["rb"],
             sp["coef"], S), reps),
         kernel_b_ms=graph_ms(lambda: rk.resample_cuda(
-            sp["y2"], sp["u"], sp["rb"], sp["bias"], sp["coef"], S)),
+            sp["y2"], sp["t"], sp["coef"], sp["band"])),
         plain_ms=cuda_ms(lambda: split_kernel_plain(
             ref_planes, sp["u"], sp["rb"], sp["coef"], S), 3)))
     return rows

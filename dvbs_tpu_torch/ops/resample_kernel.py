@@ -2,19 +2,23 @@
 
 Port of the resampler that dvbs_tpu reaches through
 frontend.dispatch_resample: frontend.resample_windowed (XLA) and the
-Pallas kernel of ops/resample_pallas.py. The glue here computes each
-256-symbol tile's biased integer shift `rb` and each symbol's Farrow
-band coordinate `u` exactly as `_resample_batched` does; then either
-csrc/resample_farrow.cu (CUDA tensors) or `resample_plain` (CPU
-tensors) evaluates
+Pallas kernel of ops/resample_pallas.py, whose entry takes the samples
+and the symbols' sample positions. So does `resample`: for CUDA tensors
+csrc/resample_farrow.cu derives each 256-symbol tile's biased integer
+shift `rb` and each symbol's Farrow band coordinate `u` from the
+positions itself and evaluates
 
     out[c, k] = sum_t tap_t(u[c, k]) * y2[c, 2*TS*ti + rb - bias + 2*j + t - 4]
 
-with ti = k // TS, j = k % TS and zeros outside the block.
+with ti = k // TS, j = k % TS and zeros outside the block; for CPU
+tensors `shifts_and_band` computes rb and u as `_resample_batched` does
+and `resample_plain` evaluates the sum.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import backend, tables
 
@@ -24,8 +28,8 @@ DEG = tables.FARROW_DEG
 
 
 def shifts_and_band(t: torch.Tensor, farrow_band):
-    """t [C, S] float32 positions -> (rb [C, nt] int32, u [C, nt*TS]
-    float32, bias) as frontend.resample_windowed computes them."""
+    """t [C, S] float32 positions -> (u [C, nt*TS] float32, rb [C, nt]
+    int32, bias) as frontend.resample_windowed computes them."""
     C, S = t.shape
     nt = -(-S // TS)
     Sp = nt * TS
@@ -38,8 +42,11 @@ def shifts_and_band(t: torch.Tensor, farrow_band):
                     ).to(torch.int32)
     rb = torch.clamp(r + bias, 0, 2 * bias - 1).to(torch.int32)
     d = gt - r[:, :, None].to(t.dtype) + 4.0
-    u = (torch.clamp(d, tables.FARROW_LO, tables.FARROW_HI) - mid) / halfr
-    return rb, u.reshape(C, Sp).to(torch.float32), bias
+    # a divisor on the device: CUDA divides by a Python number as a
+    # multiply by its reciprocal, the CPU and the kernel divide
+    u = (torch.clamp(d, tables.FARROW_LO, tables.FARROW_HI) - mid) \
+        / torch.full((), halfr, dtype=t.dtype, device=t.device)
+    return u.reshape(C, Sp).to(torch.float32), rb, bias
 
 
 def resample(y2: torch.Tensor, t: torch.Tensor, coef: torch.Tensor,
@@ -48,10 +55,10 @@ def resample(y2: torch.Tensor, t: torch.Tensor, coef: torch.Tensor,
     coef [TAPS, DEG+1] float32 (tables.farrow_coeffs), farrow_band
     (mid, half). The CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
-    rb, u, bias = shifts_and_band(t, farrow_band)
     if backend.use_kernel(y2):
-        return resample_cuda(y2, u, rb, bias, coef, t.shape[1])
-    return resample_plain(y2, u, rb, bias, coef, t.shape[1])
+        return resample_cuda(y2, t, coef, farrow_band)
+    return resample_plain(y2, *shifts_and_band(t, farrow_band), coef,
+                          t.shape[1])
 
 
 def resample_plain(y2, u, rb, bias: int, coef, S: int) -> torch.Tensor:
@@ -82,20 +89,50 @@ def resample_plain(y2, u, rb, bias: int, coef, S: int) -> torch.Tensor:
     return out.reshape(C, nt * TS)[:, :S]
 
 
-def resample_cuda(y2, u, rb, bias: int, coef, S: int) -> torch.Tensor:
-    """Launch csrc/resample_farrow.cu (kernel B's port)."""
+# coef tensor -> (its version, its values on the host): the kernel takes
+# the coefficients as a launch parameter, so each table is read from the
+# device once (a synchronisation), not at every launch
+_HOST_COEF = WeakIdKeyDictionary()
+
+
+def _host_coef(coef: torch.Tensor) -> np.ndarray:
+    hit = _HOST_COEF.get(coef)
+    if hit is None or hit[0] != coef._version:
+        hit = (coef._version, np.ascontiguousarray(
+            coef.detach().cpu().numpy(), dtype=np.float32))
+        _HOST_COEF[coef] = hit
+    return hit[1]
+
+
+def resample_cuda(y2, t, coef, farrow_band, band_out=None) -> torch.Tensor:
+    """Launch csrc/resample_farrow.cu (kernel B's port): y2 [C, n2]
+    complex64, t [C, S] float32 -> [C, S] complex64. band_out, a pair
+    (u [C, nt*TS] float32, rb [C, nt] int32), also receives the shifts
+    and band coordinates the kernel derived (for the checks on the card
+    against shifts_and_band)."""
     from ..kernels import build
     C, n2 = y2.shape
-    nt = rb.shape[1]
+    S = t.shape[1]
+    nt = -(-S // TS)
     dev = y2.device
     backend.check(y2, "y2", torch.complex64, (C, n2), dev)
-    backend.check(u, "u", torch.float32, (C, nt * TS), dev)
-    backend.check(rb, "rb", torch.int32, (C, nt), dev)
+    backend.check(t, "t", torch.float32, (C, S), dev)
     backend.check(coef, "coef", torch.float32, (TAPS, DEG + 1), dev)
+    if 2 * nt * TS > 1 << 24:
+        raise ValueError(f"{S} symbols: 2k is not exact in float32 past "
+                         f"2^23 symbols")
+    band_ptrs = (None, None)
+    if band_out is not None:
+        u, rb = band_out
+        backend.check(u, "u", torch.float32, (C, nt * TS), dev)
+        backend.check(rb, "rb", torch.int32, (C, nt), dev)
+        band_ptrs = (u.data_ptr(), rb.data_ptr())
+    mid, halfr = (float(v) for v in farrow_band)
+    bias = 1 << (tables.shift_bits_for(S) - 1)
     out = torch.empty((C, S), dtype=torch.complex64, device=dev)
-    build.launch("resample_farrow", y2.data_ptr(), C, n2, u.data_ptr(),
-                 rb.data_ptr(), S, nt, bias, coef.data_ptr(),
-                 out.data_ptr())
+    build.launch("resample_farrow", y2.data_ptr(), C, n2, t.data_ptr(), S,
+                 bias, _host_coef(coef).ctypes.data, tables.FARROW_LO,
+                 tables.FARROW_HI, mid, halfr, out.data_ptr(), *band_ptrs)
     backend.LAUNCHES["resample_farrow"] += 1
     backend.SHAPES["resample_farrow"].add((C, S))
     return out

@@ -9,8 +9,10 @@ other test_torch_* files) imports nothing of JAX:
 Tolerances and why:
 - kernel A (int8 layered LDPC): bit-exact hard, n_bad, trials (integer
   arithmetic);
-- kernel B (resampler): max abs error <= 1e-5 (float32; the kernel
-  rounds each multiply and add as the plain version does);
+- kernel B (resampler): its shifts and band coordinates bit-exact with
+  shifts_and_band's; the output within 1e-5 max abs (float32; the
+  kernel fuses the multiply-adds of the tap polynomial and the tap sum
+  that the plain version rounds one by one);
 - kernel C (Viterbi): bit-exact on every output bit (both sum the same
   bf16-rounded terms in the same order and break ties alike);
 - the small DVB-S2 banks (QPSK without pilots, 8PSK with pilots) on the
@@ -64,9 +66,13 @@ def dev():
 
 
 def _resample_case(name):
-    rng = np.random.default_rng({"drift": 0, "ragged": 1, "large": 2}[name])
-    S = {"drift": 8192, "ragged": 4096 + 128, "large": 8192}[name]
-    n2 = 2 * S + 64
+    rng = np.random.default_rng({"drift": 0, "ragged": 1, "large": 2,
+                                 "odd_rows": 3}[name])
+    S = {"drift": 8192, "ragged": 4096 + 128, "large": 8192,
+         "odd_rows": 8192}[name]
+    # odd_rows: rows of an odd length, so that every other row's windows
+    # start at 8-byte but not 16-byte aligned addresses
+    n2 = 2 * S + (63 if name == "odd_rows" else 64)
     y = (rng.normal(size=(3, n2)) + 1j * rng.normal(size=(3, n2))
          ).astype(np.complex64)
     k = np.arange(S)
@@ -79,17 +85,20 @@ def _resample_case(name):
     return y, t.astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["drift", "ragged", "large"])
+@pytest.mark.parametrize("name", ["drift", "ragged", "large", "odd_rows"])
 def test_resample_kernel_matches_plain(dev, name):
     y, t = _resample_case(name)
     coef, fmid, fhalf = tables.farrow_coeffs()
-    rb, u, bias = rk.shifts_and_band(torch.from_numpy(t).to(dev),
-                                     (fmid, fhalf))
-    args = (torch.from_numpy(y).to(dev), u, rb, bias,
-            torch.from_numpy(coef).to(dev), t.shape[1])
-    got = rk.resample_cuda(*args)
-    ref = rk.resample_plain(*args)
+    y, t = torch.from_numpy(y).to(dev), torch.from_numpy(t).to(dev)
+    coef = torch.from_numpy(coef).to(dev)
+    u, rb, bias = rk.shifts_and_band(t, (fmid, fhalf))
+    ku, krb = torch.empty_like(u), torch.empty_like(rb)
+    got = rk.resample_cuda(y, t, coef, (fmid, fhalf), band_out=(ku, krb))
+    ref = rk.resample_plain(y, u, rb, bias, coef, t.shape[1])
     torch.cuda.synchronize()
+    assert torch.equal(krb, rb)
+    assert torch.equal(ku.view(torch.int32), u.view(torch.int32))
+    assert torch.equal(rk.resample(y, t, coef, (fmid, fhalf)), got)
     assert float(torch.abs(got - ref).max()) <= 1e-5
 
 
@@ -340,13 +349,14 @@ def test_probe_split_matches_kernel_b(dev):
     for p, r in zip(planes, pr.split_prep_plain(sp["y2"], nt, sp["bias"])):
         assert torch.equal(p, r)
     got = pr.split_kernel(planes, sp["u"], sp["rb"], sp["coef"], sp["S"])
-    fused = rk.resample_cuda(sp["y2"], sp["u"], sp["rb"], sp["bias"],
-                             sp["coef"], sp["S"])
+    fused = rk.resample_cuda(sp["y2"], sp["t"], sp["coef"], sp["band"])
     ref = rk.resample_plain(sp["y2"], sp["u"], sp["rb"], sp["bias"],
                             sp["coef"], sp["S"])
     torch.cuda.synchronize()
-    assert torch.equal(got, fused)
-    assert float(torch.abs(got - ref).max()) <= 1e-5
+    # the split rounds each operation as the plain version; kernel B
+    # fuses its multiply-adds
+    assert torch.equal(got, ref)
+    assert float(torch.abs(got - fused).max()) <= 1e-5
 
 
 @pytest.mark.parametrize("F", [1, 3, 8, 130])
