@@ -349,7 +349,18 @@ def main(argv=None):
                     print(f"control: state saved to {args.state_file}",
                           file=sys.stderr)
                 elif cmd[0] == "metrics":
-                    print(f"control: {stream.metrics}", file=sys.stderr)
+                    if bank is None:
+                        print(f"control: {stream.metrics}", file=sys.stderr)
+                    elif args.mode == "s2":
+                        print(f"control: {bank.stats.report()}",
+                              file=sys.stderr)
+                    else:
+                        print("control: dvbs bank lock=" +
+                              "".join(str(int(x)) for x in bank.locked) +
+                              " ber=" + "/".join(f"{b:.3f}" for b in bank.ber)
+                              + " out_of_sync=" + "/".join(
+                                  str(int(x)) for x in bank.out_of_sync)
+                              + f" steps={bank.steps_run}", file=sys.stderr)
                 else:
                     print(f"control: unknown command {cmd[0]!r}",
                           file=sys.stderr)

@@ -8,16 +8,37 @@ frames, quality gating, TS/GSE parse with mark_gap resync), bank-level
 auto-MODCOD, and get_state/set_state checkpoints of the same format.
 Only its two seams differ: `_upload` hands the step a tensor on the
 bank's device, and `_finalize` fetches with `.cpu()`.
+
+Observability: `stats` (profiling.PipelineStats) counts blocks, frames,
+TS bytes, LDPC sweeps, escalations, host BCH repairs, FIFO bytes copied
+and bytes uploaded, and each block's turn from its step's call to the
+end of its finalize; its stages are the spans below, each timed into
+`stats` and, while a profiler records, a range of the trace:
+
+    bank.feed       the whole of `feed`
+    bank.fifo       FIFO append and trim, the stacking of a block
+    bank.upload     `_upload`: packing and the host-to-device copy
+    bank.step       the enqueue of one step (the range opens inside the
+                    step, parallel/mesh.CarrierBank.forward)
+    bank.finalize   the whole of `_finalize`, and inside it
+      bank.fetch      the step's small outputs to the host (waits for
+                      the step)
+      bank.escalate   the full-budget rerun and its fetch
+      bank.bch_repair the host BCH of flagged frames
+      bank.parse      gap marking and the TS parsers
+      bank.vote       the PLS vote and the MODCOD-switch check
 """
 from __future__ import annotations
 
 import collections
+import time
 
 import numpy as np
 
 import torch
 
 from .. import backend
+from ..profiling import PipelineStats, span
 from ..spec import modcod, scrambling, bch_spec
 from ..ops import frontend
 from .driver import make_bbframe_parser
@@ -61,6 +82,9 @@ class DVBS2BankStream:
         self.frames_ok = np.zeros(n_carriers, np.int64)
         self.ldpc_trials = np.zeros(n_carriers, np.int32)
         self.sync_quality = np.zeros(n_carriers, np.float32)
+        self.stats = PipelineStats()
+        self._inflight = collections.deque()    # (block, ns at its step)
+        self._dispatched = 0                    # blocks stepped
 
     def _configure(self, mc, short, pilots, block_symbols=None,
                    program=None):
@@ -150,24 +174,38 @@ class DVBS2BankStream:
         takes the host block and each rank uploads its own carriers)."""
         dev = getattr(self.step_fn, "input_device",
                       self._build_opts["device"])
-        if blocks.dtype == np.uint8:
-            return torch.from_numpy(np.ascontiguousarray(blocks)).to(dev)
-        if self.ingest == "cs4":
-            packed = np.stack([frontend.pack_cs4(b) for b in blocks])
-            return torch.from_numpy(packed).to(dev)
-        ri = np.stack([blocks.real, blocks.imag], axis=1)
-        rms = np.sqrt(np.mean(ri ** 2, axis=(1, 2), keepdims=True)) + 1e-30
-        i8 = np.clip(np.round(ri * (24.0 / rms)), -127, 127).astype(np.int8)
-        return torch.from_numpy(i8).to(dev)
+        with span("bank.upload", self.stats):
+            if blocks.dtype == np.uint8:
+                x = np.ascontiguousarray(blocks)
+            elif self.ingest == "cs4":
+                x = np.stack([frontend.pack_cs4(b) for b in blocks])
+            else:
+                ri = np.stack([blocks.real, blocks.imag], axis=1)
+                rms = np.sqrt(np.mean(ri ** 2, axis=(1, 2),
+                                      keepdims=True)) + 1e-30
+                x = np.clip(np.round(ri * (24.0 / rms)), -127,
+                            127).astype(np.int8)
+            self.stats.upload_bytes += x.nbytes
+            return torch.from_numpy(x).to(dev)
 
     def _have_block(self) -> bool:
         n = 2 * self.block_symbols
         return all(len(f) >= n for f in self._fifos)
 
-    def _dispatch(self):
+    def _dispatch(self, starts=None):
+        """Stack the block at `starts` (per carrier; the FIFO heads when
+        None), upload it and enqueue its step; the block's turn starts
+        at the step's call."""
         n = 2 * self.block_symbols
-        blocks = np.stack([f[:n] for f in self._fifos])
-        return self.step_fn(self._upload(blocks))
+        with span("bank.fifo", self.stats):
+            blocks = np.stack([f[a:a + n] for f, a in zip(
+                self._fifos, [0] * self.C if starts is None else starts)])
+            self.stats.fifo_bytes += blocks.nbytes
+        x = self._upload(blocks)
+        self._inflight.append((self._dispatched, time.perf_counter_ns()))
+        self._dispatched += 1
+        with self.stats.timer("bank.step"):
+            return self.step_fn(x)
 
     # ------------------------------------------------------------------
     def feed(self, per_carrier) -> list[bytes]:
@@ -175,73 +213,81 @@ class DVBS2BankStream:
         bytes produced per carrier this call. Pipelined like
         DVBS2Stream.feed: the look-ahead block dispatches with the
         predicted per-carrier advance before block i finalizes."""
-        for c in range(self.C):
-            part = np.asarray(per_carrier[c])
-            if part.dtype != np.uint8:          # pre-packed cs4 passthrough
-                part = part.astype(np.complex64)
-            if self._fifos[c].dtype != part.dtype:
-                if len(self._fifos[c]):
-                    raise TypeError(
-                        f"carrier {c}: feed dtype switched to "
-                        f"{part.dtype} with {len(self._fifos[c])} "
-                        f"{self._fifos[c].dtype} samples buffered — "
-                        "concatenating would silently corrupt the FIFO")
-                self._fifos[c] = np.zeros(0, part.dtype)
-            self._fifos[c] = np.concatenate([self._fifos[c], part])
-        outs = [bytearray() for _ in range(self.C)]
-        while True:
-            # re-read geometry every pass: an auto-MODCOD switch changes
-            # block_symbols / frame length mid-stream
-            n = 2 * self.block_symbols
-            L = self.cfg.plframe_len
-            F_L = self.F * L
-            if self._pending is None:
-                if not self._have_block():
-                    break
-                self._pending = self._dispatch()
-            # look-ahead dispatch at the predicted advance
-            ahead = None
-            if all(len(self._fifos[c]) >= self._next_adv[c] + n
-                   for c in range(self.C)):
-                blocks = np.stack([self._fifos[c][self._next_adv[c]:
-                                                  self._next_adv[c] + n]
-                                   for c in range(self.C)])
-                ahead = self.step_fn(self._upload(blocks))
-            res = self._finalize(self._pending, outs)
-            last_end = res["last_end"]           # [C] symbols
-            if res.get("switched"):
-                # program/geometry changed: the look-ahead block (if
-                # any) was built by the stale program — discard it and
-                # re-dispatch from the trimmed FIFOs (_configure already
-                # reset _next_adv; _maybe_switch reset _expected_start)
+        with span("bank.feed", self.stats):
+            with span("bank.fifo", self.stats):
                 for c in range(self.C):
-                    adv = 2 * max(int(last_end[c]) - self.edge_margin -
-                                  self.GUARD, L)
-                    self._fifos[c] = self._fifos[c][adv:]
-                self._pending = None
-                continue
-            if ahead is None:
-                for c in range(self.C):
-                    adv = 2 * max(int(last_end[c]) - self.edge_margin -
-                                  self.GUARD, L)
-                    self._fifos[c] = self._fifos[c][adv:]
-                    self._next_adv[c] = 2 * F_L
-                    self._expected_start[c] = int(last_end[c]) - adv // 2
-                self._pending = None
-            else:
-                for c in range(self.C):
-                    adv = int(self._next_adv[c])
-                    self._fifos[c] = self._fifos[c][adv:]
-                    self._expected_start[c] = int(last_end[c]) - adv // 2
-                    # damped one-block-late advance feedback (gain 1/2,
-                    # models/driver.py:136-145)
-                    d0 = int(last_end[c]) - F_L
-                    err = int(np.clip(
-                        (d0 - (self.edge_margin + self.GUARD)) // 2,
-                        -self.edge_margin // 2, self.edge_margin // 2))
-                    self._next_adv[c] = 2 * (F_L + err)
+                    part = np.asarray(per_carrier[c])
+                    if part.dtype != np.uint8:  # pre-packed cs4 passthrough
+                        part = part.astype(np.complex64)
+                    if self._fifos[c].dtype != part.dtype:
+                        if len(self._fifos[c]):
+                            raise TypeError(
+                                f"carrier {c}: feed dtype switched to "
+                                f"{part.dtype} with {len(self._fifos[c])} "
+                                f"{self._fifos[c].dtype} samples buffered — "
+                                "concatenating would silently corrupt the "
+                                "FIFO")
+                        self._fifos[c] = np.zeros(0, part.dtype)
+                    self._fifos[c] = np.concatenate([self._fifos[c], part])
+                    self.stats.samples_in += len(part)
+                    self.stats.fifo_bytes += self._fifos[c].nbytes
+            outs = [bytearray() for _ in range(self.C)]
+            while True:
+                # re-read geometry every pass: an auto-MODCOD switch
+                # changes block_symbols / frame length mid-stream
+                n = 2 * self.block_symbols
+                L = self.cfg.plframe_len
+                F_L = self.F * L
+                if self._pending is None:
+                    if not self._have_block():
+                        break
+                    self._pending = self._dispatch()
+                # look-ahead dispatch at the predicted advance
+                ahead = None
+                if all(len(self._fifos[c]) >= self._next_adv[c] + n
+                       for c in range(self.C)):
+                    ahead = self._dispatch(self._next_adv)
+                res = self._finalize(self._pending, outs)
+                last_end = res["last_end"]           # [C] symbols
+                if res.get("switched"):
+                    # program/geometry changed: the look-ahead block (if
+                    # any) was built by the stale program — discard it
+                    # and re-dispatch from the trimmed FIFOs (_configure
+                    # already reset _next_adv; _maybe_switch reset
+                    # _expected_start)
+                    with span("bank.fifo", self.stats):
+                        for c in range(self.C):
+                            adv = 2 * max(int(last_end[c]) -
+                                          self.edge_margin - self.GUARD, L)
+                            self._fifos[c] = self._fifos[c][adv:]
+                    self._pending = None
+                    self._inflight.clear()
+                    continue
+                with span("bank.fifo", self.stats):
+                    if ahead is None:
+                        for c in range(self.C):
+                            adv = 2 * max(int(last_end[c]) -
+                                          self.edge_margin - self.GUARD, L)
+                            self._fifos[c] = self._fifos[c][adv:]
+                            self._next_adv[c] = 2 * F_L
+                            self._expected_start[c] = \
+                                int(last_end[c]) - adv // 2
+                    else:
+                        for c in range(self.C):
+                            adv = int(self._next_adv[c])
+                            self._fifos[c] = self._fifos[c][adv:]
+                            self._expected_start[c] = \
+                                int(last_end[c]) - adv // 2
+                            # damped one-block-late advance feedback
+                            # (gain 1/2, models/driver.py:136-145)
+                            d0 = int(last_end[c]) - F_L
+                            err = int(np.clip(
+                                (d0 - (self.edge_margin + self.GUARD)) // 2,
+                                -self.edge_margin // 2,
+                                self.edge_margin // 2))
+                            self._next_adv[c] = 2 * (F_L + err)
                 self._pending = ahead
-        return [bytes(o) for o in outs]
+            return [bytes(o) for o in outs]
 
     def flush(self) -> list[bytes]:
         """Finalize any in-flight dispatched block without waiting for
@@ -265,10 +311,20 @@ class DVBS2BankStream:
     def _finalize(self, dev, outs) -> dict:
         """Fetch one dispatched block, escalate/repair, parse per
         carrier. Mirrors DVBS2Receiver.finalize_block lane-batched."""
+        with span("bank.finalize", self.stats):
+            res = self._finalize_block(dev, outs)
+        block, t0 = self._inflight.popleft()
+        self.stats.turn(block, time.perf_counter_ns() - t0)
+        return res
+
+    def _finalize_block(self, dev, outs) -> dict:
+        st = self.stats
         cfg = self.cfg
         llrs = dev.pop("llrs")
         hard_dev = dev.pop("hard")
-        small = {k: v.cpu().numpy() for k, v in dev.items() if k != "freq"}
+        with span("bank.fetch", st):
+            small = {k: v.cpu().numpy() for k, v in dev.items()
+                     if k != "freq"}
         C, F = self.C, self.F
         quality = small["quality"].reshape(C * F)
         ldpc_ok = small["ldpc_ok"]
@@ -280,9 +336,11 @@ class DVBS2BankStream:
         hard2_dev = None
         retry = (~ldpc_ok) & sync_ok
         if retry.any():
-            out2 = self._escalate(llrs)
-            hard2_dev = out2.pop("hard")
-            out2 = {k: v.cpu().numpy() for k, v in out2.items()}
+            with span("bank.escalate", st):
+                st.escalations += 1
+                out2 = self._escalate(llrs)
+                hard2_dev = out2.pop("hard")
+                out2 = {k: v.cpu().numpy() for k, v in out2.items()}
             for k in ("ldpc_ok", "bch_bad", "kbch_bytes"):
                 small[k] = np.where(
                     retry.reshape((-1,) + (1,) * (small[k].ndim - 1)),
@@ -292,15 +350,17 @@ class DVBS2BankStream:
             trials = np.where(retry, self.n_iters + out2["trials"], trials)
             retried = retry
         frame_ok = sync_ok & ~bch_bad
-        for lane in np.nonzero(sync_ok & bch_bad)[0]:
-            hd = hard2_dev if retried[lane] else hard_dev
-            bits = hd[lane, :cfg.nbch].cpu().numpy()
-            fixed, ncorr = bch_spec.decode(bits, cfg.framesize, cfg.rate)
-            if ncorr < 0:
-                continue    # BCH-inconsistent = corrupt (see dvbs2.py)
-            frame_ok[lane] = True
-            kbch_bytes[lane] = scrambling.bb_scramble_bytes(
-                np.packbits(fixed[:cfg.kbch]))
+        with span("bank.bch_repair", st):
+            for lane in np.nonzero(sync_ok & bch_bad)[0]:
+                hd = hard2_dev if retried[lane] else hard_dev
+                bits = hd[lane, :cfg.nbch].cpu().numpy()
+                fixed, ncorr = bch_spec.decode(bits, cfg.framesize, cfg.rate)
+                if ncorr < 0:
+                    continue    # BCH-inconsistent = corrupt (see dvbs2.py)
+                frame_ok[lane] = True
+                st.bch_repaired += 1
+                kbch_bytes[lane] = scrambling.bb_scramble_bytes(
+                    np.packbits(fixed[:cfg.kbch]))
         # per-carrier parse with gap marking (frame failures AND frame-
         # grid jumps — a relocated non-L-periodic frame decodes fine but
         # is not byte-contiguous with its predecessor, models/driver.py)
@@ -338,49 +398,57 @@ class DVBS2BankStream:
             return not dummy_deltas_ok(
                 int(starts[c, i]) - int(starts[c, prev_good]))
 
-        for c in range(C):
-            i = 0
-            prev_good = None
-            while i < F:
-                if not fo[c, i]:
-                    # detected dummy slots skip gap-free (conf bar 0.5:
-                    # all-dummy blocks lose the freq anchor, driver.py)
-                    if not (int(plsb[c, i]) >> 2 == 0
-                            and confb[c, i] >= 0.5):
+        ts_bytes = 0
+        with span("bank.parse", st):
+            for c in range(C):
+                i = 0
+                prev_good = None
+                n0 = len(outs[c])
+                while i < F:
+                    if not fo[c, i]:
+                        # detected dummy slots skip gap-free (conf bar
+                        # 0.5: all-dummy blocks lose the freq anchor,
+                        # driver.py)
+                        if not (int(plsb[c, i]) >> 2 == 0
+                                and confb[c, i] >= 0.5):
+                            self.parsers[c].mark_gap()
+                        i += 1
+                        continue
+                    if disc(c, prev_good, i):
                         self.parsers[c].mark_gap()
-                    i += 1
-                    continue
-                if disc(c, prev_good, i):
-                    self.parsers[c].mark_gap()
-                j = i + 1
-                last = i
-                while j < F and fo[c, j] and not disc(c, last, j):
-                    last = j
-                    j += 1
-                outs[c].extend(self.parsers[c].feed(
-                    np.ascontiguousarray(kb[c, i:j])))
-                prev_good = j - 1
-                i = j
+                    j = i + 1
+                    last = i
+                    while j < F and fo[c, j] and not disc(c, last, j):
+                        last = j
+                        j += 1
+                    outs[c].extend(self.parsers[c].feed(
+                        np.ascontiguousarray(kb[c, i:j])))
+                    prev_good = j - 1
+                    i = j
+                ts_bytes += len(outs[c]) - n0
         self.frames_seen += F
         self.frames_ok += fo.sum(axis=1)
         self.ldpc_trials = trials.reshape(C, F).max(axis=1)
         self.sync_quality = small["quality"].mean(axis=1)
+        st.block_done(0, frame_ok, trials, ts_bytes)   # samples: as fed
         # bank-level auto-MODCOD vote (confidence-gated, as the single-
         # carrier driver: off-SOF locator hits while misconfigured read
         # noise PLS — the soft-correlation confidence separates them)
-        pls = small["pls"].reshape(C, F)
-        conf = small["pls_conf"].reshape(C, F)
-        for c in range(C):
-            for i in range(F):
-                # dummy PLFRAMEs (MODCOD 0) neither win nor dilute votes
-                if conf[c, i] >= 0.7 and int(pls[c, i]) >> 2 != 0:
-                    self._votes[c].append(int(pls[c, i]))
-            if len(self._votes[c]) >= self._vote_n:
-                vals, counts = np.unique(np.array(self._votes[c]),
-                                         return_counts=True)
-                self.detected_pls[c] = int(vals[counts.argmax()])
+        with span("bank.vote", st):
+            pls = small["pls"].reshape(C, F)
+            conf = small["pls_conf"].reshape(C, F)
+            for c in range(C):
+                for i in range(F):
+                    # dummy PLFRAMEs (MODCOD 0) neither win nor dilute
+                    if conf[c, i] >= 0.7 and int(pls[c, i]) >> 2 != 0:
+                        self._votes[c].append(int(pls[c, i]))
+                if len(self._votes[c]) >= self._vote_n:
+                    vals, counts = np.unique(np.array(self._votes[c]),
+                                             return_counts=True)
+                    self.detected_pls[c] = int(vals[counts.argmax()])
+            switched = self._maybe_switch_modcod()
         return dict(last_end=starts[:, -1] + cfg.plframe_len,
-                    switched=self._maybe_switch_modcod())
+                    switched=switched)
 
     # ------------------------------------------------------------------
     # checkpoint/resume (SURVEY.md sec. 5): feed() leaves no in-flight
@@ -426,3 +494,4 @@ class DVBS2BankStream:
         self.frames_seen = np.asarray(st["frames_seen"]).copy()
         self.frames_ok = np.asarray(st["frames_ok"]).copy()
         self._pending = None
+        self._inflight.clear()

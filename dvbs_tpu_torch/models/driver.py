@@ -19,7 +19,7 @@ from .. import backend
 from ..spec import modcod
 from ..io.bbframe_parser import BBFrameParser
 from ..io import native as _native
-from ..profiling import PipelineStats
+from ..profiling import PipelineStats, span
 from .dvbs2 import DVBS2Receiver
 
 
@@ -113,19 +113,19 @@ class DVBS2Stream:
             if self._pending is None:
                 if len(self._fifo) < n:
                     break
-                with self.stats.clock.stage("dispatch"):
+                with span("dispatch", self.stats):
                     self._pending = (self.rx,
                                      self.rx.dispatch_block(self._fifo[:n]))
             adv = self._next_adv
             ahead = None
             if len(self._fifo) >= adv + n:
-                with self.stats.clock.stage("dispatch"):
+                with span("dispatch", self.stats):
                     ahead = (self.rx,
                              self.rx.dispatch_block(self._fifo[adv:adv + n]))
             rx, dev = self._pending
-            with self.stats.clock.stage("finalize"):
+            with span("finalize", self.stats):
                 res = rx.finalize_block(dev)
-            with self.stats.clock.stage("parse"):
+            with span("parse", self.stats):
                 blk = self._parse_frames(res)
             out.extend(blk)
             self.stats.block_done(n, res.frame_ok, res.ldpc_trials, len(blk))

@@ -33,8 +33,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from ..profiling import span
 from ..io import native as _native
 from ..io.ts_deframer import TSDeframer as _PyTSDeframer
 from ..spec import dvbs_fec, rs_spec, scrambling
@@ -95,7 +95,7 @@ class FrontEnd(nn.Module):
         cfo, nco_phase, tau at sample tau_eval (None: the block end),
         f4 the residual frequency, ph the V&V phase [C, n/2])."""
         first = hints[:, 4] > 0.5
-        with record_function("frontend"):
+        with span("frontend"):
             x = frontend.agc(x)
             cfo = torch.where(first, frontend.coarse_cfo_estimate(x),
                               hints[:, 0])
@@ -103,7 +103,7 @@ class FrontEnd(nn.Module):
                                     hints[:, 1])
             x = frontend.mix(x, cfo, nco_phase)
             y = frontend.matched_filter(x, self.rrc_taps, self.fir_rrc)
-        with record_function("timing"):
+        with span("timing"):
             tau_hint = torch.where(first, torch.full_like(hints[:, 2],
                                                           math.nan),
                                    hints[:, 2])
@@ -111,7 +111,7 @@ class FrontEnd(nn.Module):
                 y, self.mid_taps, self.fir_mid, self.farrow_coef,
                 self.farrow_band, n_windows=16, tau_hint=tau_hint,
                 tau_eval=tau_eval)
-        with record_function("carrier"):
+        with span("carrier"):
             S = z.shape[-1]
             f4 = frontend.qpsk_residual_freq(z)
             ks = torch.arange(S, dtype=torch.int32, device=z.device)
@@ -132,7 +132,7 @@ class ReceiverFront(FrontEnd):
 
     def forward(self, x: torch.Tensor, hints: torch.Tensor):
         zc, cfo, nco_phase, tau_end, f4, ph = self.symbols(x, hints, None)
-        with record_function("carrier"):
+        with span("carrier"):
             C, S = zc.shape
             soft = torch.view_as_real(zc).reshape(C, 2 * S)
             new_hints = torch.stack([
@@ -242,7 +242,7 @@ class LockedChain(nn.Module):
     def forward(self, x: torch.Tensor, hints: torch.Tensor,
                 carry: torch.Tensor) -> torch.Tensor:
         soft, new_hints, scat = self.front(x, hints)
-        with record_function("viterbi"):
+        with span("viterbi"):
             s = soft[0]
             if self.rotation:                   # I' = Q, Q' = -I
                 pr = s.reshape(-1, 2)
@@ -251,7 +251,7 @@ class LockedChain(nn.Module):
             bits, dl = depuncture_decode(stream[None, :self.n_use],
                                          self.pat_idx, self.p, CORE, WING,
                                          self.decode_segments)
-        with record_function("ber_pack"):
+        with span("ber_pack"):
             ber = reencode_ber(bits, dl, 0, self.TB)
             floats = torch.cat([ber, new_hints[0], scat.reshape(-1),
                                 stream[self.n_use:]])

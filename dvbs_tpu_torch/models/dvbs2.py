@@ -28,8 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from ..profiling import span
 from ..spec import bch_spec, modcod, scrambling
 from .. import backend, tables
 from ..ops import (bch, demap, equalizer, frontend, interleaver,
@@ -74,28 +74,28 @@ class SymbolProgram(nn.Module):
         L = cfg.plframe_len
         F = self.F
         C = samples_ri.shape[0]
-        with record_function("frontend"):
+        with span("frontend"):
             x = torch.complex(samples_ri[:, 0].to(torch.float32),
                               samples_ri[:, 1].to(torch.float32))
             x = frontend.agc(x)
             cfo = frontend.coarse_cfo_estimate(x)
             x = frontend.mix(x, cfo)
             y = frontend.fir_filter(x, self.rrc_taps, self.fir_rrc)
-        with record_function("timing"):
+        with span("timing"):
             z, _, _ = frontend.recover_symbols_full(
                 y, self.mid_taps, self.fir_mid, self.farrow_coef,
                 self.farrow_band,
                 n_windows=frontend.timing_windows(y.shape[-1] // 2))
         if self.equalize:
-            with record_function("equalizer"):
+            with span("equalizer"):
                 z = equalizer.lms_equalize(z)
-        with record_function("plsync"):
+        with span("plsync"):
             score, _ = plsync.correlate(z, self.corr_T)
             locate = plsync.locate_frames_chain if self.dummy_aware \
                 else plsync.locate_frames
             starts, quality = locate(score, L, F, margin=self.edge_margin)
             frames = plsync.extract_frames(z, starts, L)     # [C, F, L]
-        with record_function("phase"):
+        with span("phase"):
             pilots = (self.pstarts, self.pilot_descr) if cfg.pilots else None
             fed = plphase.coarse_fed_common(frames, self.hdr_syms, pilots,
                                             robust=self.dummy_aware)
@@ -117,13 +117,13 @@ class SymbolProgram(nn.Module):
                     vv = plphase.qpsk_vv_track(payload,
                                                torch.zeros_like(theta0))
                 else:
-                    with record_function("dd_phase_track"):
+                    with span("dd_phase_track"):
                         vv = plphase.dd_phase_track(
                             payload, torch.zeros_like(theta0),
                             self.demap_pts)
                 payload = plphase.derotate(payload, vv)
             header = frames_c[..., :90]
-        with record_function("demap"):
+        with span("demap"):
             pls_idx, pls_conf = plhdr.detect_pls(header, self.pls_syms)
             llrs = demap.soft_demap(payload, cfg.constellation,
                                     self.demap_pts, self.demap_mask0)
@@ -146,7 +146,7 @@ def run_fec(program: SymbolProgram, llrs: torch.Tensor, n_iters: int,
     frame count as it is. Returns kbch_bytes [B, kbch/8] uint8, trials,
     ldpc_ok, bch_bad [B] (and hard [B, nldpc] with keep_hard)."""
     cfg = program.cfg
-    with record_function("ldpc"):
+    with span("ldpc"):
         if fec == "xla":
             hard, n_bad, trials = ldpc_qc.decode_qc(
                 llrs, cfg.ldpc_table, n_iters=n_iters)
@@ -154,7 +154,7 @@ def run_fec(program: SymbolProgram, llrs: torch.Tensor, n_iters: int,
             hard, n_bad, trials = ldpc_kernel.decode_calls(
                 ldpc_kernel.quantize_llrs(llrs), cfg.ldpc_table, n_iters,
                 kt=kt)
-    with record_function("bch_pack"):
+    with span("bch_pack"):
         bch_bad = bch.syndrome_nonzero(hard[:, :cfg.nbch], program.bch_M)
         packed = frontend.pack_bits_to_bytes(hard[:, :cfg.kbch]) \
             ^ program.bb_mask

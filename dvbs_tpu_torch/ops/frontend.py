@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from ..profiling import span
 from . import resample_kernel
 
 
@@ -227,7 +228,8 @@ def recover_symbols_full(y2: torch.Tensor, mid_taps: torch.Tensor,
     if pw_ok:
         tau_end_pw = tau_u[:, -1:] + dt[:, -1:] * (pos - centers[-1]) / win
         tau_end = torch.where(use_pw, tau_end_pw, tau_end)
-    z = resample_kernel.resample(y2, t, farrow_coef, farrow_band)
+    with span("resample"):
+        z = resample_kernel.resample(y2, t, farrow_coef, farrow_band)
     return z, tau_u, tau_end[:, 0]
 
 

@@ -30,8 +30,8 @@ import time
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from ..profiling import span
 from ..io import native as _native
 from ..spec import dvbs_fec
 from .. import backend
@@ -68,12 +68,12 @@ class DVBSFront(FrontEnd):
         self.u_soft = u_soft
 
     def forward(self, ri: torch.Tensor, hints: torch.Tensor):
-        with record_function("frontend"):
+        with span("frontend"):
             x = torch.complex(ri[:, 0].to(torch.float32),
                               ri[:, 1].to(torch.float32))
         zc, cfo, nco_phase, tau_next, f4, ph = self.symbols(x, hints,
                                                             self.u_soft)
-        with record_function("carrier"):
+        with span("carrier"):
             # locked rotation z * exp(-j pi/2): I' = Q, Q' = -I
             rot = (hints[:, 5] > 0.5)[:, None]
             re = torch.where(rot, zc.imag, zc.real)
@@ -149,14 +149,14 @@ class DVBSStreamBank(nn.Module):
 
     def forward(self, samples: torch.Tensor, hints: torch.Tensor) -> dict:
         if self.ingest == "cs4":
-            with record_function("frontend"):
+            with span("frontend"):
                 samples = frontend.unpack_cs4(samples)
         soft, new_hints = self.front(samples, hints)
-        with record_function("viterbi"):
+        with span("viterbi"):
             bits, dl = depuncture_decode(
                 soft[:, :self.geom["win_soft"]], self.pat_idx, self.p,
                 self.core, self.wing, self.decode_segments)
-        with record_function("ber_pack"):
+        with span("ber_pack"):
             ber = reencode_ber(bits, dl, self.ov_p, self.TB)
             packed = pack_bits(bits)
         return dict(bits=packed, ber=ber, hints=new_hints)
@@ -223,16 +223,16 @@ class DVBSBank(nn.Module):
 
     def forward(self, samples: torch.Tensor) -> dict:
         if self.ingest == "cs4":
-            with record_function("frontend"):
+            with span("frontend"):
                 samples = frontend.unpack_cs4(samples)
         soft, _ = self.front(samples, self.hints)
-        with record_function("viterbi"):
+        with span("viterbi"):
             used = torch.stack([soft[c, d:d + self.n_use]
                                 for c, d in enumerate(self.drops)])
             bits, dl = depuncture_decode(used, self.pat_idx, self.p,
                                          self.core, self.wing,
                                          self.decode_segments)
-        with record_function("ber_pack"):
+        with span("ber_pack"):
             ber = reencode_ber(bits, dl, 0, self.TB)
             packed = pack_bits(bits)
         return dict(bits=packed, ber=ber)

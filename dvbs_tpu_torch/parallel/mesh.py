@@ -22,10 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 import torch.distributed as dist
 
+from ..profiling import span
 from ..spec import modcod
 from ..models.dvbs2 import DVBS2Receiver, frames_per_block, run_fec
 from ..ops import frontend, ldpc_kernel
@@ -63,8 +63,13 @@ class CarrierBank(nn.Module):
                        self.rx._kt, keep_hard=self.stream_outputs)
 
     def forward(self, samples: torch.Tensor) -> dict:
+        with span("bank.step"):
+            return self.enqueue(samples)
+
+    def enqueue(self, samples: torch.Tensor) -> dict:
+        """The step's launches (forward less its `bank.step` span)."""
         if self.ingest == "cs4":
-            with record_function("frontend"):
+            with span("frontend"):
                 samples = frontend.unpack_cs4(samples)
         out = self.program(samples)
         llrs = out["llrs"].reshape(-1, self.rx.cfg.nldpc)
@@ -157,7 +162,7 @@ class MultiCarrierStep(nn.Module):
         ok = fd["ldpc_ok"].reshape(c, F)
         locked = collectives.psum(ok.sum(dtype=torch.int32).reshape(1),
                                   self.mesh.group)
-        with record_function("gather"):
+        with span("gather"):
             g = collectives.gather_dict(dict(
                 hard=fd["hard"].reshape(c, F, N),
                 trials=fd["trials"].reshape(c, F), ldpc_ok=ok,
@@ -207,14 +212,15 @@ class ShardedBank(nn.Module):
         self.n_iters_full = n_iters_full
 
     def forward(self, samples) -> dict:
-        x = collectives.local_lanes(samples, self.mesh.rank, self.bank.C,
-                                    self.mesh.device)
-        out = self.bank(x)
-        llrs = out.pop("llrs")
-        with record_function("gather"):
-            out = collectives.gather_dict(out, self.mesh.group)
-        out["llrs"] = llrs
-        return out
+        with span("bank.step"):
+            x = collectives.local_lanes(samples, self.mesh.rank, self.bank.C,
+                                        self.mesh.device)
+            out = self.bank.enqueue(x)
+            llrs = out.pop("llrs")
+            with span("gather"):
+                out = collectives.gather_dict(out, self.mesh.group)
+            out["llrs"] = llrs
+            return out
 
     def escalate(self, llrs: torch.Tensor) -> dict:
         """Full-budget rerun: this rank's llrs (the step's "llrs") decoded

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
 
+from ..profiling import span
 from ..models.dvbs2 import DVBS2Receiver, run_fec
 from . import collectives
 
@@ -47,7 +47,7 @@ class TimeShardedStep(nn.Module):
         """chunk [2, A] -> this rank's window [2, n]: its shard and the
         heads of the next `hops` shards of its time ring."""
         parts, nxt = [chunk], chunk
-        with record_function("halo"):
+        with span("halo"):
             for _ in range(self.hops):
                 nxt = collectives.ring_shift(nxt, self.mesh.time_group)
                 parts.append(nxt)
@@ -68,7 +68,7 @@ class TimeShardedStep(nn.Module):
         out.pop("scatter")
         out.update(run_fec(self.program, llrs, self.rx.max_ldpc_trials,
                            "xla"))
-        with record_function("gather"):
+        with span("gather"):
             out = collectives.gather_dict({k: v[None] for k, v in
                                            out.items()}, self.mesh.group)
         return {k: v.reshape(shape + tuple(v.shape[1:]))

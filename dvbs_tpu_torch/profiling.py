@@ -1,19 +1,33 @@
-"""Tracing and per-stage observability.
+"""Tracing and per-stage observability: the port's one span mechanism.
 
-PyTorch port of dvbs_tpu/profiling.py. Two surfaces:
+PyTorch port of dvbs_tpu/profiling.py. Three surfaces:
 
+- `span(name, stats=None)`: a context manager around a stretch of host
+  code. With a `stats` (a `PipelineStats`) it adds the stretch's
+  `perf_counter_ns` to that stage's total; while a profiler records it
+  also opens a `record_function` range of the same name, so the trace
+  (on the profiler's clock) sees it and the device operations launched
+  inside it. With no profiler recording it opens no range and makes no
+  object of its own: one timer a (stats, name) is reused, and without
+  `stats` the span is a shared no-op (what stays alive while it is
+  open is the `with` statement's bound `__exit__`, as for any context
+  manager; a `@contextmanager` function makes two objects more).
 - `device_trace(path)`: context manager around torch.profiler that
   records host and device activity of everything inside the block and
   writes a Chrome trace (Perfetto, chrome://tracing) to `path`.
 - `PipelineStats`: host-side counters the streaming drivers update per
   block: samples in, frames seen/ok, TS bytes out, LDPC trial
-  histogram, and wall time per pipeline stage (dispatch / finalize /
-  parse). A few time.perf_counter calls per block; always on.
+  histogram, the bank's escalations, host BCH repairs, FIFO bytes
+  copied and bytes uploaded, each block's turn from its step's call to
+  the end of its finalize, and the spans' totals. Always on.
 
 Usage:
     stream = DVBS2Stream(...)
     ... feed ...
     print(stream.stats.report())
+
+    with profiling.span("parse", stream.stats):
+        ...
 
     with profiling.device_trace("trace.json") as prof:
         stream.feed(samples)
@@ -24,6 +38,82 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+
+import numpy as np
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_now = time.perf_counter_ns
+TURNS_KEPT = 4096            # blocks whose turn the report summarises
+
+
+class _Timer:
+    """The host time of one named stage of one stats: entered and left
+    in place, so a span with no profiler recording allocates nothing
+    garbage-collected (a stack of start times lets the stage nest)."""
+
+    __slots__ = ("total_ns", "calls", "_t0")
+
+    def __init__(self):
+        self.total_ns = 0
+        self.calls = 0
+        self._t0 = []
+
+    def __enter__(self):
+        self._t0.append(_now())
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.total_ns += _now() - self._t0.pop()
+        self.calls += 1
+
+
+class _Null:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        pass
+
+
+_NULL = _Null()
+
+
+class _Traced:
+    """A span opened while a profiler records: its `record_function`
+    range, closed on exit even where the profiler stopped meanwhile,
+    and the stats' timer if any."""
+
+    __slots__ = ("_rf", "_timer")
+
+    def __init__(self, name: str, timer):
+        self._rf = record_function(name)
+        self._timer = timer
+
+    def __enter__(self):
+        if self._timer is not None:
+            self._timer.__enter__()
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._rf.__exit__(exc_type, exc, tb)
+        if self._timer is not None:
+            self._timer.__exit__(exc_type, exc, tb)
+
+
+def span(name: str, stats=None):
+    """A span of host code named `name`: timed into `stats` (a
+    `PipelineStats`) where given, and a profiler range of that name
+    while a profiler records."""
+    if _profiler_enabled():
+        return _Traced(name, None if stats is None else stats.timer(name))
+    if stats is None:
+        return _NULL
+    t = stats._timers.get(name)
+    return t if t is not None else stats.timer(name)
 
 
 @contextlib.contextmanager
@@ -44,45 +134,51 @@ def device_trace(path: str):
     prof.export_chrome_trace(str(path))
 
 
-class StageClock:
-    """Accumulates wall time per named stage."""
-
-    def __init__(self):
-        self.total = collections.defaultdict(float)
-        self.calls = collections.defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.total[name] += time.perf_counter() - t0
-            self.calls[name] += 1
-
-
 class PipelineStats:
     """Per-stream counters mirroring (and extending) the reference GUI's
     live numbers (main.cpp:440-500)."""
 
     def __init__(self):
-        self.clock = StageClock()
+        self._timers = {}            # stage -> _Timer, in first-run order
         self.samples_in = 0
         self.blocks = 0
         self.frames_seen = 0
         self.frames_ok = 0
         self.ts_bytes_out = 0
         self.trial_hist = collections.Counter()   # ldpc sweeps -> frames
+        self.escalations = 0         # full-budget LDPC reruns
+        self.bch_repaired = 0        # frames repaired by the host BCH
+        self.fifo_bytes = 0          # FIFO concatenation and block stacking
+        self.upload_bytes = 0        # host to device
+        self.turns = collections.deque(maxlen=TURNS_KEPT)   # (block, ns)
         self._t_start = time.perf_counter()
+
+    def timer(self, name: str) -> _Timer:
+        t = self._timers.get(name)
+        if t is None:
+            t = self._timers[name] = _Timer()
+        return t
+
+    @property
+    def stages(self) -> dict:
+        """Stage name -> (host seconds in all, calls)."""
+        return {k: (t.total_ns / 1e9, t.calls)
+                for k, t in self._timers.items()}
 
     def block_done(self, n_samples: int, frame_ok, trials, ts_bytes: int):
         self.blocks += 1
         self.samples_in += int(n_samples)
         self.frames_seen += len(frame_ok)
-        self.frames_ok += int(sum(bool(f) for f in frame_ok))
+        self.frames_ok += int(np.count_nonzero(frame_ok))
         self.ts_bytes_out += int(ts_bytes)
-        for t in trials:
-            self.trial_hist[int(t)] += 1
+        vals, counts = np.unique(np.asarray(trials), return_counts=True)
+        for v, n in zip(vals.tolist(), counts.tolist()):
+            self.trial_hist[int(v)] += n
+
+    def turn(self, block: int, ns: int):
+        """Block `block` took `ns` from its step's call to the end of
+        its finalize."""
+        self.turns.append((block, ns))
 
     def report(self) -> str:
         el = time.perf_counter() - self._t_start
@@ -93,9 +189,17 @@ class PipelineStats:
             f"  ts_bytes {self.ts_bytes_out}",
             "ldpc trials: " + " ".join(
                 f"{k}:{v}" for k, v in sorted(self.trial_hist.items())),
+            f"escalations {self.escalations}  bch repaired "
+            f"{self.bch_repaired}  fifo bytes {self.fifo_bytes}  "
+            f"uploaded bytes {self.upload_bytes}",
         ]
-        for name in self.clock.total:
-            t, c = self.clock.total[name], self.clock.calls[name]
-            lines.append(f"  stage {name:12s} {t * 1e3:9.1f} ms total"
-                         f"  {t / max(c, 1) * 1e3:7.2f} ms/call x{c}")
+        if self.turns:
+            ms = np.array([ns for _, ns in self.turns]) / 1e6
+            lines.append(f"turn ms (last {len(ms)} blocks): median "
+                         f"{np.median(ms):.2f}  p95 "
+                         f"{np.percentile(ms, 95):.2f}")
+        for name, t in self._timers.items():
+            lines.append(f"  stage {name:14s} {t.total_ns / 1e6:9.1f} ms "
+                         f"total  {t.total_ns / max(t.calls, 1) / 1e6:7.2f}"
+                         f" ms/call x{t.calls}")
         return "\n".join(lines)
