@@ -47,7 +47,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    [8, 2240, 2] and its blocks at rates 1/2 and 7/8, [64, 2240, 2] and
    [112, 2240, 2], the first-block bank's [1024, 704, 2] and the 2-carrier
    DVB-S stream banks' [512, 704, 2] and [256, 704, 2] (these five timed
-   against their bounds), T = 1..5, and one all-erasure segment;
+   against their bounds), T = 1..5, and one all-erasure segment; then
+   the soft demapper (csrc/soft_demap.cu) against its plain version at
+   the 32APSK 3/4 pilots bank's [128 x 12960, 32] and the QPSK 1/2
+   bank's [128 x 32400, 4] (demap.against_plain's tolerance), each
+   timed eagerly and by CUDA-graph replay against its bound, beside the
+   plain version's time;
 6. every stage of the resampler probe (csrc/resample_probe.cu: v0..v8,
    dma, rows, rb, barrel, swap, full, split) against its plain version
    at the TPU probes' shape and at the bank's, max abs error 0; then
@@ -154,9 +159,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    watchdog unlocks it, it relocks, carrier 0 stays contiguous);
 19. the examples: dvbs_tpu_torch.examples.loopback_demo and
    carrier_bank_demo --bench-shape in-process;
-20. every shape at which phases 7 to 19 launched kernel A, B or C
-   (backend.SHAPES) against the kernel's plain version: those the
-   kernels' phases did not compare are compared here.
+20. every shape at which phases 7 to 19 launched kernel A, B or C or the
+   soft demapper (backend.SHAPES) against the kernel's plain version:
+   those the kernels' phases did not compare are compared here.
 
 Phases 15 to 19 take their signals from workers that run on while
 phases 7 to 14 run.
@@ -227,6 +232,11 @@ LDPC_OPS_PER_EDGE = 7 + 13
 # rides in the path metric's add); none is a fused multiply-add, so
 # they are counted at F32_ADD_OPS
 VITERBI_OPS_PER_STEP = (64 * 8 * 3 + 32 * 5) / 3
+# the soft demapper at the banks' shapes: (symbols, points, Es/N0 dB,
+# label); each constellation's MODCOD for the points and the ring ratios
+DEMAP_SHAPES = ((128 * 12960, 32, 14.5, "32APSK 3/4 pilots bank"),
+                (128 * 32400, 4, 5.0, "QPSK 1/2 bank"))
+DEMAP_MODCOD = {4: 4, 8: 14, 16: 18, 32: 24}
 # the pilots banks: MODCOD, SNR dB, label
 PILOTS_BANKS = ((14, 9.5, "8psk34"), (18, 11.0, "16apsk23"),
                 (24, 14.5, "32apsk34"))
@@ -720,10 +730,11 @@ def noisy_llrs(torch, dev, table: str, rate: float, ebno: float, F: int,
 
 
 # the shapes each kernel was held against its plain version at (kernel
-# A [frames, N], kernel B [C, S], kernel C [B, T]); phase_coverage holds
-# every other shape the main paths launched
+# A [frames, N], kernel B [C, S], kernel C [B, T], the soft demapper
+# [symbols, points]); phase_coverage holds every other shape the main
+# paths launched
 COMPARED = {"ldpc_layered": set(), "resample_farrow": set(),
-            "viterbi_acs": set()}
+            "viterbi_acs": set(), "soft_demap": set()}
 
 
 def same_decode(torch, label: str, got, ref) -> int:
@@ -989,6 +1000,72 @@ def phase_resample(torch, dev):
     return row
 
 
+def demap_case(torch, dev, n: int, M: int, snr_db: float):
+    """The soft demapper's inputs at [n, M]: n noisy points of the bank's
+    constellation of M points (the MODCOD of DEMAP_MODCOD) at snr_db Es/N0,
+    and its output against the plain version: (syms, kind, pts, mask0,
+    and demap.against_plain's max abs err, share of the tolerance and
+    LLRs at a halving step). Raises beyond the tolerance."""
+    from dvbs_tpu_torch import tables
+    from dvbs_tpu_torch.ops import demap
+    from dvbs_tpu_torch.spec import modcod
+    cfg = modcod.get_config(DEMAP_MODCOD[M])
+    p, m0 = tables.demap_tables(cfg.constellation, cfg.g1, cfg.g2)
+    rng = np.random.default_rng(3)
+    sigma = np.sqrt(10 ** (-snr_db / 10) / 2)
+    x = p[rng.integers(0, M, n)] + sigma * (rng.normal(size=n) +
+                                            1j * rng.normal(size=n))
+    syms = torch.from_numpy(x.astype(np.complex64)).to(dev)
+    pts, mask0 = torch.from_numpy(p).to(dev), torch.from_numpy(m0).to(dev)
+    got = demap.soft_demap_cuda(syms, cfg.constellation, pts, mask0)
+    torch.cuda.synchronize()
+    share, err, at_step = demap.against_plain(got, syms, cfg.constellation,
+                                              pts, mask0)
+    if not share <= 1:
+        raise AssertionError(f"soft demapper [{n}, {M}]: an LLR at {share:.3g}"
+                             f" of its tolerance from the plain version's")
+    COMPARED["soft_demap"].add((n, M))
+    return syms, cfg.constellation, pts, mask0, err, share, at_step
+
+
+def phase_demap(torch, dev):
+    """The soft demapper against its plain version at the banks' shapes
+    (DEMAP_SHAPES), each timed eagerly and by CUDA-graph replay against
+    its bound, beside the plain version's time. The kernels row reports
+    the first shape (the 32APSK bank's)."""
+    from dvbs_tpu_torch.kernels import probe_resample as pr
+    from dvbs_tpu_torch.ops import demap
+    row = None
+    for n, M, snr_db, label in DEMAP_SHAPES:
+        syms, kind, pts, mask0, err, share, at_step = demap_case(
+            torch, dev, n, M, snr_db)
+        ms = cuda_ms(lambda: demap.soft_demap_cuda(syms, kind, pts, mask0),
+                     20, batches=3)
+        g_ms = pr.graph_ms(lambda: demap.soft_demap_cuda(syms, kind, pts,
+                                                         mask0))
+        plain_ms = cuda_ms(lambda: demap.soft_demap_plain(syms, kind, pts,
+                                                          mask0), 3)
+        m = M.bit_length() - 1
+        # bytes: the symbols in, the LLRs out. Operations: as the benchmark
+        # counts the algorithm's (rxbench/work/demap.py), an exp or a log
+        # one operation: 6 M for the distances, 4 M + 2 a bit
+        nbytes = n * 8 + n * m * 4
+        b = bound(nbytes, n * (6 * M + m * (4 * M + 2)), F32_OPS)
+        print(f"soft demapper [{n}, {M}] ({label}): max abs err {err:.3g} "
+              f"({share:.3g} of the tolerance; {at_step} LLRs at a halving "
+              f"step); kernel {ms:.4f} ms eager, graph-replayed "
+              f"{g_ms:.4f} ms = {b['bound_ms'] / g_ms:.3f} of its bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain "
+              f"{plain_ms:.3f} ms")
+        if row is None:
+            row = dict(name="soft_demap", route="cuda",
+                       source="dvbs_tpu_torch/csrc/soft_demap.cu",
+                       replaces="none: dvbs_tpu/ops/demap.py is plain jnp",
+                       max_abs_err=err, ms=ms, graph_ms=g_ms,
+                       plain_ms=plain_ms, library_ms=None, **b)
+    return row
+
+
 def viterbi_case(torch, label: str, xt) -> tuple:
     """Kernel C on llrs xt [B, T, 2] against its plain version, bit for
     bit: (bits, largest difference, 0); raises where a bit differs."""
@@ -1140,7 +1217,7 @@ def phase_probe(torch, dev):
 
 
 def stream_bank(torch, st, sigs, sents, blocks: int, label: str,
-                kernels=("ldpc_layered", "resample_farrow"),
+                kernels=("ldpc_layered", "resample_farrow", "soft_demap"),
                 keep: list | None = None) -> dict:
     """Feed a DVBS2BankStream `blocks` blocks after the first, plus flush,
     with the counts set to 0 just before; every frame must decode, every
@@ -1803,7 +1880,8 @@ def phase_sharded(torch, dev, smi, sigs) -> list:
                                  ingest="cs4", program=program, device=dev)
             runs.append(stream_bank(torch, st, cs4, sents, E2E_BLOCKS,
                                     "sharded bank stream",
-                                    kernels=("resample_farrow",)))
+                                    kernels=("resample_farrow",
+                                             "soft_demap")))
             n = 2 * st.block_symbols
             host_in = torch.from_numpy(np.stack([s[:n] for s in cs4]))
             dev_in = host_in.to(dev)
@@ -2547,21 +2625,24 @@ def phase_failures(torch, dev, sigs, late, main_ts) -> list:
 
 
 def phase_coverage(torch, dev) -> None:
-    """Every shape at which the main paths launched kernel A, B or C
-    (backend.SHAPES since the main path began) held against the plain
-    version: the kernels' phases compared most; each other one is
-    compared here (A on noisy int8 frames of a table of its length, 12
-    sweeps; B on noise; C on noisy codewords)."""
+    """Every shape at which the main paths launched kernel A, B or C or
+    the soft demapper (backend.SHAPES since the main path began) held
+    against the plain version: the kernels' phases compared most; each
+    other one is compared here (A on noisy int8 frames of a table of its
+    length, 12 sweeps; B on noise; C on noisy codewords; the demapper on
+    points of its constellation at 10 dB)."""
     from dvbs_tpu_torch import backend, tables
     from dvbs_tpu_torch.spec import ldpc_spec
     rng = np.random.default_rng(60)
     for name, label in (("ldpc_layered", "A"), ("resample_farrow", "B"),
-                        ("viterbi_acs", "C")):
+                        ("viterbi_acs", "C"), ("soft_demap", "demap")):
         launched = sorted(backend.SHAPES[name])
         late = [s for s in launched if s not in COMPARED[name]]
         for s in late:
             if name == "resample_farrow":
                 resample_case(torch, dev, *s)
+            elif name == "soft_demap":
+                demap_case(torch, dev, *s, 10.0)
             elif name == "viterbi_acs":
                 x = rng.normal(0, 1.5, s + (2,))
                 x[:, ::3, 1] = 0.0
@@ -2757,8 +2838,9 @@ def main() -> int:
         phase_build()
         stamp("build")
         rows = [phase_ldpc(torch, dev), phase_resample(torch, dev),
-                phase_viterbi(torch, dev)]
-        stamp("kernels A, B, C against their plain versions")
+                phase_viterbi(torch, dev), phase_demap(torch, dev)]
+        stamp("kernels A, B, C and the soft demapper against their plain "
+              "versions")
         probe_row, probe_launches = phase_probe(torch, dev)
         runs.append(probe_launches)
         stamp("probe stages")

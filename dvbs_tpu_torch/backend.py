@@ -13,11 +13,11 @@ import torch
 
 # launches per kernel; each wrapper adds one where it launches its kernel
 LAUNCHES = {"ldpc_layered": 0, "resample_farrow": 0, "viterbi_acs": 0,
-            "resample_probe": 0}
+            "resample_probe": 0, "soft_demap": 0}
 # the shapes each kernel was launched at, recorded beside its count
-# (kernel A [frames, N], kernel B [C, S], kernel C [B, T]), so that a
-# check can hold every shape a run launched against the plain version;
-# reset_launches leaves them
+# (kernel A [frames, N], kernel B [C, S], kernel C [B, T], the soft
+# demapper [symbols, points]), so that a check can hold every shape a
+# run launched against the plain version; reset_launches leaves them
 SHAPES = {k: set() for k in LAUNCHES}
 
 
@@ -50,6 +50,19 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def host_value(cache, t: torch.Tensor, make):
+    """make(t's values as a numpy array), kept in `cache` (a
+    torch.utils.weak.WeakIdKeyDictionary) while t lives unchanged: what
+    a kernel takes as a launch parameter is read from the device (a
+    synchronisation) once per version of its tensor, not at every
+    launch."""
+    hit = cache.get(t)
+    if hit is None or hit[0] != t._version:
+        hit = (t._version, make(t.detach().cpu().numpy()))
+        cache[t] = hit
+    return hit[1]
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

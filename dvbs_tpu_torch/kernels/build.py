@@ -37,6 +37,7 @@ SIGNATURES = {
     "resample_probe_prep": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "resample_probe_split": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
                              _P],
+    "soft_demap": [_P, _I, _I, _P, _F, _F, _F, _P, _P],
 }
 
 _lib = None

@@ -90,18 +90,8 @@ def resample_plain(y2, u, rb, bias: int, coef, S: int) -> torch.Tensor:
 
 
 # coef tensor -> (its version, its values on the host): the kernel takes
-# the coefficients as a launch parameter, so each table is read from the
-# device once (a synchronisation), not at every launch
+# the coefficients as a launch parameter (backend.host_value)
 _HOST_COEF = WeakIdKeyDictionary()
-
-
-def _host_coef(coef: torch.Tensor) -> np.ndarray:
-    hit = _HOST_COEF.get(coef)
-    if hit is None or hit[0] != coef._version:
-        hit = (coef._version, np.ascontiguousarray(
-            coef.detach().cpu().numpy(), dtype=np.float32))
-        _HOST_COEF[coef] = hit
-    return hit[1]
 
 
 def resample_cuda(y2, t, coef, farrow_band, band_out=None) -> torch.Tensor:
@@ -129,9 +119,11 @@ def resample_cuda(y2, t, coef, farrow_band, band_out=None) -> torch.Tensor:
         band_ptrs = (u.data_ptr(), rb.data_ptr())
     mid, halfr = (float(v) for v in farrow_band)
     bias = 1 << (tables.shift_bits_for(S) - 1)
+    coef_host = backend.host_value(_HOST_COEF, coef, lambda c: (
+        np.ascontiguousarray(c, dtype=np.float32)))
     out = torch.empty((C, S), dtype=torch.complex64, device=dev)
     build.launch("resample_farrow", y2.data_ptr(), C, n2, t.data_ptr(), S,
-                 bias, _host_coef(coef).ctypes.data, tables.FARROW_LO,
+                 bias, coef_host.ctypes.data, tables.FARROW_LO,
                  tables.FARROW_HI, mid, halfr, out.data_ptr(), *band_ptrs)
     backend.LAUNCHES["resample_farrow"] += 1
     backend.SHAPES["resample_farrow"].add((C, S))

@@ -188,13 +188,15 @@ def demap_tables(kind: str, g1: float | None, g2: float | None):
     """(points complex64 [S], mask0 bool [m, S]) with mask0[k, s] true
     when standard bit y_k of symbol s is 0 (demap._tables)."""
     pts = constellations.points(kind, g1, g2).astype(np.complex64)
-    m = modcod.MOD_BITS[kind]
-    S = len(pts)
-    mask0 = np.zeros((m, S), bool)
-    for s in range(S):
-        for k in range(m):
-            mask0[k, s] = ((s >> (m - 1 - k)) & 1) == 0
-    return pts, mask0
+    return pts, demap_mask0(len(pts))
+
+
+def demap_mask0(S: int) -> np.ndarray:
+    """[m, S] bool, S = 2^m: true where standard bit y_k of symbol s,
+    (s >> (m-1-k)) & 1, is 0."""
+    m = S.bit_length() - 1
+    s = np.arange(S)
+    return ((s[None, :] >> (m - 1 - np.arange(m))[:, None]) & 1) == 0
 
 
 @functools.lru_cache()

@@ -15,6 +15,15 @@ Tolerances and why:
   that the plain version rounds one by one);
 - kernel C (Viterbi): bit-exact on every output bit (both sum the same
   bf16-rounded terms in the same order and break ties alike);
+- the soft demapper (demap.against_plain): each LLR within 1e-5 x sca x
+  (1 + ss |x| + ps max|p|) / npwr of the plain version's, the largest
+  |z| its log-sum-exps meet times the LLR scale (float32, the same
+  formula; the sums and the library's reductions run in another order,
+  and torch's complex abs is a hypot where the kernel takes the square
+  root of a fused square sum). Where the plain version's LLR before the
+  clamp lies within that tolerance of 127 x 2^j, the count of halvings
+  may differ by one: there one halving more or fewer is accepted, for
+  at most 1% of a case's LLRs;
 - the small DVB-S2 banks (QPSK without pilots, 8PSK with pilots) on the
   card against the same bank on the CPU: decoded bytes, flags and PLS
   exact, quality within 1e-3 (float32 sums in another order);
@@ -45,7 +54,7 @@ from dvbs_tpu_torch.kernels import probe_resample as pr
 from dvbs_tpu_torch.models.driver import DVBS2Stream
 from dvbs_tpu_torch.models.dvbs import DVBSStream
 from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
-from dvbs_tpu_torch.ops import ldpc_kernel
+from dvbs_tpu_torch.ops import demap, ldpc_kernel
 from dvbs_tpu_torch.ops import resample_kernel as rk
 from dvbs_tpu_torch.ops import viterbi_kernel as vk
 from dvbs_tpu_torch.ops.frontend import pack_cs4
@@ -212,6 +221,7 @@ def test_small_bank_on_card_matches_cpu(dev):
         if d.type == "cuda":
             assert backend.LAUNCHES["ldpc_layered"] > 0
             assert backend.LAUNCHES["resample_farrow"] > 0
+            assert backend.LAUNCHES["soft_demap"] == 1
     cpu, gpu = outs
     assert cpu["ldpc_ok"].all()
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
@@ -245,6 +255,129 @@ def test_small_pilots_bank_on_card_matches_cpu(dev):
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the soft demapper
+# ---------------------------------------------------------------------------
+
+DEMAP_MODCODS = (4, 13, 18, 24)         # QPSK, 8PSK, 16APSK, 32APSK
+DEMAP_CASES = ("noisy", "on_point", "far", "zero", "clamp", "ragged",
+               "strided")
+
+
+def _demap_case(mc: int, name: str):
+    """(syms complex64, npwr) of case `name` for MODCOD mc: noisy points
+    [8, 4096]; each point where its scaled distance is 0; far outside the
+    outer ring (|x| 10 to 1000, where a subset's exps underflow); zero;
+    npwr 1/32, so that the halving clamp acts; 7 x 256 + 37 symbols; and
+    [64, 1000], of which the test takes a non-contiguous view."""
+    cfg = modcod.get_config(mc)
+    pts = tables.demap_tables(cfg.constellation, cfg.g1, cfg.g2)[0]
+    ss, ps, _ = tables.DEMAP_SCALES[cfg.constellation]
+    rng = np.random.default_rng(100 + mc)
+
+    def noisy(*shape):
+        return pts[rng.integers(0, len(pts), shape)] + 0.15 * (
+            rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    npwr = 1.0
+    if name in ("noisy", "clamp"):
+        x = noisy(8, 4096)
+        npwr = 1 / 32 if name == "clamp" else 1.0
+    elif name == "on_point":
+        x = np.tile(pts * (ps / ss), 40)
+    elif name == "far":
+        x = noisy(4096) * 10.0 ** rng.uniform(1, 3, 4096)
+    elif name == "zero":
+        x = np.zeros(1000)
+    elif name == "ragged":
+        x = noisy(7 * 256 + 37)
+    else:
+        x = noisy(64, 1000)
+    return torch.from_numpy(x.astype(np.complex64)), npwr
+
+
+@pytest.mark.parametrize("case", DEMAP_CASES)
+@pytest.mark.parametrize("mc", DEMAP_MODCODS)
+def test_soft_demap_kernel_matches_plain(dev, mc, case):
+    cfg = modcod.get_config(mc)
+    kind = cfg.constellation
+    p, m0 = tables.demap_tables(kind, cfg.g1, cfg.g2)
+    pts, mask0 = torch.from_numpy(p).to(dev), torch.from_numpy(m0).to(dev)
+    x, npwr = _demap_case(mc, case)
+    x = x.to(dev)
+    if case == "strided":
+        x = x[:, ::2].T
+        assert not x.is_contiguous()
+    backend.reset_launches()
+    got = demap.soft_demap(x, kind, pts, mask0, npwr)
+    assert backend.LAUNCHES["soft_demap"] == 1
+    assert (x.numel(), len(p)) in backend.SHAPES["soft_demap"]
+    torch.cuda.synchronize()
+    share, _, at_step = demap.against_plain(got, x, kind, pts, mask0, npwr)
+    assert share <= 1 and 100 * at_step <= got.numel(), (share, at_step)
+    if case == "clamp":
+        raw = demap.llrs_unclamped(x, kind, pts, mask0, npwr)
+        assert bool((raw.abs() > 127).any())
+        assert float(got.abs().max()) <= 127
+
+
+def test_soft_demap_kernel_refuses(dev):
+    cfg = modcod.get_config(24)
+    p, m0 = tables.demap_tables(cfg.constellation, cfg.g1, cfg.g2)
+    pts = torch.from_numpy(p).to(dev)
+    x = torch.zeros(10, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        demap.soft_demap(x, cfg.constellation, pts,
+                         torch.from_numpy(m0[::-1].copy()).to(dev))
+    with pytest.raises(TypeError):
+        demap.soft_demap(x.to(torch.complex128), cfg.constellation, pts,
+                         torch.from_numpy(m0).to(dev))
+
+
+def test_bank_step_llrs_with_kernel_match_plain(dev, monkeypatch):
+    """A 2-carrier 32APSK 3/4 pilots bank (4 normal frames) at 14.5 dB:
+    the step's one demapper launch, its LLRs against the plain version
+    on the same payload, and the step's LLRs and decoded bytes against
+    the same step with the plain demapper."""
+    mc = 24
+    cfg = modcod.get_config(mc, pilots=True)
+    block = mesh.bank_block_symbols(2, mc=mc, pilots=True, frames_total=4)
+    sigs = []
+    for seed, cfo in ((41, 0.005 * np.pi), (42, -0.008 * np.pi)):
+        pkts = dvbs2_mod.random_ts_packets(200, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=14.5, cfo=cfo,
+                           delay_samples=0.3, sco_ppm=10.0, seed=seed + 1)
+        sigs.append(pack_cs4(y[:2 * block]))
+    x = torch.from_numpy(np.stack(sigs)).to(dev)
+    step, _, _ = mesh.build_carrier_bank(
+        2, mc=mc, pilots=True, block_symbols=block, fec="int8",
+        ingest="cs4", stream_outputs=True, device=dev)
+    seen, real = [], demap.soft_demap
+
+    def spy(*a, **k):
+        seen.append((a, real(*a, **k)))
+        return seen[-1][1]
+    monkeypatch.setattr(demap, "soft_demap", spy)
+    backend.reset_launches()
+    got = {k: v.cpu() for k, v in step(x).items()}
+    assert backend.LAUNCHES["soft_demap"] == 1
+    (syms, kind, pts, mask0), llr = seen[0]
+    assert (syms.numel(), 32) in backend.SHAPES["soft_demap"]
+    share, _, at_step = demap.against_plain(llr, syms, kind, pts, mask0)
+    assert share <= 1 and at_step == 0, (share, at_step)
+    monkeypatch.setattr(demap, "soft_demap", demap.soft_demap_plain)
+    ref = {k: v.cpu() for k, v in step(x).items()}
+    assert backend.LAUNCHES["soft_demap"] == 1
+    ss, ps, sca = tables.DEMAP_SCALES[kind]
+    tol = 1e-5 * sca * (1 + ss * float(syms.abs().max()) +
+                        ps * float(pts.abs().max()))
+    assert float((got["llrs"] - ref["llrs"]).abs().max()) <= tol
+    assert bool(ref["ldpc_ok"].all())
+    for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
+        assert torch.equal(got[k], ref[k]), k
 
 
 VITERBI_SHAPES = {"noisy": (256, 704), "ragged": (130, 151),
