@@ -72,7 +72,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the pilots banks: 8 carriers of 8PSK 3/4, 16APSK 2/3 and 32APSK 3/4
    normal frames with pilots, cs4, 128 frames per block: one bank step
    each decodes all 128 frames with no BCH flag and contiguous TS;
-   8PSK 3/4 is also streamed for >= 2 blocks plus flush;
+   8PSK 3/4 is also streamed for >= 2 blocks plus flush. Then the
+   32APSK bank's step as CUDA graphs (dvbs_tpu_torch/graphs.py): three
+   blocks through a fresh bank (eager, captured, replayed) equal to the
+   eager step bit for bit, the host ms of a step eager and replayed,
+   and under the profiler every range the benchmark reads (frontend ...
+   bch_pack, resample, bank.step) owning as many replayed operations
+   as eager ones (rxbench/trace.py's rule);
 10. the single-carrier slice, at block_symbols 2^17 and >= 6 blocks:
    the port's cli.main run in-process on cf32 files in a temporary
    directory, default device, `--fec pallas`, for QPSK 1/2, 8PSK 3/4
@@ -118,7 +124,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (8 carriers of QPSK 1/2 normal frames, cs4, >= 4 blocks plus flush):
    every frame decodes and every carrier's TS is one byte-exact
    contiguous run, its step timed beside the unsharded
-   build_carrier_bank(fec="xla") and the gather alone;
+   build_carrier_bank(fec="xla"), replayed as CUDA graphs (its capture
+   timed apart) and eager, and the gather alone;
    build_time_sharded at 2^15 short and 2^17 normal frames: every
    output equal to the receiver's symbol program and full-budget FEC on
    the same wrapped window; entry() once. Kernel B launched on each;
@@ -243,6 +250,11 @@ PILOTS_BANKS = ((14, 9.5, "8psk34"), (18, 11.0, "16apsk23"),
 PILOTS_PKTS = 700               # packets per carrier of a pilots bank
 STREAM_MC = 14                  # the pilots bank also streamed
 STREAM_BLOCKS = 2               # streamed: >= 2 blocks plus flush
+GRAPH_MC = 24                   # the pilots bank stepped as CUDA graphs
+GRAPH_REPS, GRAPH_TRACED = 20, 5    # steps timed, steps traced, each way
+# the ranges whose device operations the benchmark reads
+GRAPH_RANGES = ("frontend", "timing", "resample", "plsync", "phase",
+                "demap", "ldpc", "bch_pack", "bank.step")
 # the single-carrier slice: name -> MODCOD, pilots, SNR dB (those at which
 # the JAX package's tests and bench decode these MODCODs), dummy PLFRAMEs
 # (one after every n-th data frame) or None
@@ -1390,6 +1402,114 @@ def phase_pilots(torch, dev, smi, mc, label, sigs, sents):
     return launches, lambda: step(dev_in)
 
 
+def graph_range_ops(tr) -> dict:
+    """range -> (device operations launched inside its spans, their
+    device ms), a step each, for the GRAPH_RANGES of trace `tr`
+    (rxbench/trace.Trace) of GRAPH_TRACED steps: the benchmark's rule."""
+    out = {}
+    for name in GRAPH_RANGES:
+        spans = tr.spans.get(name, ())
+        n = sum(1 for t in tr.launch
+                if t is not None and any(a <= t < b for a, b in spans))
+        out[name] = (n / GRAPH_TRACED,
+                     (tr.range_s(name) or 0.0) * 1e3 / GRAPH_TRACED)
+    return out
+
+
+def phase_graphs(torch, dev, smi, sigs):
+    """The 32APSK 3/4 pilots bank's step as CUDA graphs (graphs.py):
+    consecutive blocks through the bank (eager, captured, replayed)
+    equal to the eager enqueue bit for bit; the host ms of a step eager
+    and replayed, and the device ms; then GRAPH_TRACED steps of each
+    under profiling.device_trace, read by rxbench/trace.Trace: every
+    range the benchmark reads owns device operations of the replayed
+    segments, as many as eagerly (`bank.step` also the input's copy and
+    the outputs' clones)."""
+    from rxbench.trace import Trace
+    from dvbs_tpu_torch import profiling
+    from dvbs_tpu_torch.spec import modcod
+    from dvbs_tpu_torch.parallel.mesh import (bank_block_symbols,
+                                              build_carrier_bank)
+    mc = GRAPH_MC
+    L2 = 2 * modcod.get_config(mc, pilots=True).plframe_len
+    block = bank_block_symbols(N_CARRIERS, mc=mc, pilots=True)
+    n = 2 * block
+    assert len(sigs[0]) >= n + 2 * L2, (len(sigs[0]), n + 2 * L2)
+    xs = [torch.from_numpy(np.stack([s[k * L2:k * L2 + n] for s in sigs])
+                           ).to(dev) for k in range(3)]
+    bank, _, _ = build_carrier_bank(N_CARRIERS, mc=mc, pilots=True,
+                                    block_symbols=block, fec="int8",
+                                    ingest="cs4", stream_outputs=True,
+                                    device=dev)
+    with torch.no_grad():
+        ref = [bank.enqueue(x) for x in xs]
+        got = [bank(xs[0])]                          # eager
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        got.append(bank(xs[1]))                      # captured
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_reserved()
+        got += [bank(xs[2]), bank(xs[0])]            # replayed
+    assert bank.counts == dict(graph_captures=1, graph_replays=3,
+                               eager_steps=1), bank.counts
+    assert bool(ref[0]["ldpc_ok"].all()), "the 32APSK bank must decode"
+    for k, (g, r) in enumerate(zip(got, ref + ref[:1])):
+        for name in r:
+            assert torch.equal(g[name], r[name]), f"step {k}: {name}"
+    print(f"graphs: the 32APSK bank's step captured in "
+          f"{bank._graph.segments} segments in {capture_s:.3f} s (the call "
+          f"and its first replay; reserved memory +"
+          f"{(mem1 - mem0) / 2 ** 20:.0f} MiB); eager, captured and "
+          f"replayed steps equal to the eager enqueue on every output")
+
+    def host_ms(fn) -> list:
+        out = []
+        for _ in range(GRAPH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)
+
+    def eager():
+        with profiling.span("bank.step"):
+            return bank.enqueue(xs[0])
+
+    def replayed():
+        return bank(xs[0])
+    with torch.no_grad():
+        for label, fn in (("eager", eager), ("replayed", replayed)):
+            h = host_ms(fn)
+            d = cuda_ms(fn, 10, 3)
+            print(f"graphs: {label} step, host ms to enqueue (started on an "
+                  f"idle card, {GRAPH_REPS} steps): min {h[0]:.3f} median "
+                  f"{h[len(h) // 2]:.3f}; {d:.3f} ms a step by CUDA events "
+                  f"(3 batches x 10); card {smi}")
+        ops = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, fn in (("eager", eager), ("replayed", replayed)):
+                path = os.path.join(tmp, f"graphs_{label}.json")
+                torch.cuda.synchronize()
+                with profiling.device_trace(path):
+                    for _ in range(GRAPH_TRACED):
+                        fn()
+                ops[label] = graph_range_ops(Trace(path))
+                print(f"graphs: {label}, traced ({GRAPH_TRACED} steps): " +
+                      ", ".join(f"{r} {n:g} ops {ms:.4f} ms"
+                                for r, (n, ms) in ops[label].items()))
+    for r in GRAPH_RANGES:
+        n_eager, n_rep = ops["eager"][r][0], ops["replayed"][r][0]
+        assert n_rep > 0, f"range {r} owns no device operation replayed"
+        if r != "bank.step":
+            assert n_rep == n_eager, (r, n_eager, n_rep)
+    extra = ops["replayed"]["bank.step"][0] - ops["eager"]["bank.step"][0]
+    assert extra == 1 + len(ref[0]), extra      # the copy in, the clones
+    print("graphs: every range the benchmark reads owns the replayed "
+          "segments' operations, as many as eagerly")
+
+
 def phase_pilots_stream(torch, dev, sigs, sents):
     from dvbs_tpu_torch.models.bank_stream import DVBS2BankStream
     st = DVBS2BankStream(N_CARRIERS, mc=STREAM_MC, short=False, pilots=True,
@@ -1891,16 +2011,27 @@ def phase_sharded(torch, dev, smi, sigs) -> list:
                                          fec="xla", ingest="cs4",
                                          device=dev)
             with torch.no_grad():
-                a, b = bank(dev_in), sharded(dev_in)
+                a, b = bank(dev_in), sharded(dev_in)     # a: eager
                 for k in a:
                     assert torch.equal(a[k], b[k]), f"sharded bank: {k}"
+                # the capture, outside the timed turns
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                c = bank(dev_in)
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+                assert bank.counts["graph_captures"] == 1, bank.counts
+                for k in a:
+                    assert torch.equal(a[k], c[k]), f"replayed bank: {k}"
                 local = sharded.bank(dev_in)
                 local.pop("llrs")               # the step keeps them local
                 # in turns, the order reversed every other turn, so that a
                 # drift of the host's speed falls on all; per call also the
                 # host's enqueue time and the allocator's cudaMalloc and
                 # cudaFree calls
-                variants = (("unsharded", lambda: bank(dev_in)),
+                variants = (("unsharded, replayed", lambda: bank(dev_in)),
+                            ("unsharded, eager",
+                             lambda: bank.enqueue(dev_in)),
                             ("sharded", lambda: sharded(dev_in)),
                             ("sharded from the host",
                              lambda: sharded(host_in)))
@@ -1928,8 +2059,10 @@ def phase_sharded(torch, dev, smi, sigs) -> list:
                       f"{min(times[k]):.3f}), host enqueue ms "
                       f"{[round(t, 1) for t in enq[k]]}, cudaMalloc + "
                       f"cudaFree calls {mallocs[k]}" for k in times)
-                  + f"; the gather of its {len(local)} outputs alone "
-                  f"{gather:.4f} ms; outputs equal the unsharded bank's; "
+                  + f"; the unsharded bank's capture (the call and its "
+                  f"first replay) {capture_s:.3f} s; the gather of its "
+                  f"{len(local)} outputs alone {gather:.4f} ms; outputs "
+                  f"equal the unsharded bank's, eager and replayed; "
                   f"card {smi}")
 
             # the time-sharded step: one rank, its ring the identity
@@ -2783,6 +2916,8 @@ def main_phases(torch, dev, smi, sigs, late, stamp, profile, trace
         phase_profile(torch, step, trace + "_32apsk.json", LAYERS_S2,
                       "32APSK 3/4 pilots")
     stamp("pilots banks")
+    phase_graphs(torch, dev, smi, sigs[GRAPH_MC][0])
+    stamp("32APSK bank step as CUDA graphs")
     runs += phase_slice(torch, sigs, trace if profile else None)
     stamp("single-carrier slice")
     runs += phase_dvbs_single(torch, sigs, trace if profile else None)

@@ -11,9 +11,11 @@ bank's device, and `_finalize` fetches with `.cpu()`.
 
 Observability: `stats` (profiling.PipelineStats) counts blocks, frames,
 TS bytes, LDPC sweeps, escalations, host BCH repairs, FIFO bytes copied
-and bytes uploaded, and each block's turn from its step's call to the
-end of its finalize; its stages are the spans below, each timed into
-`stats` and, while a profiler records, a range of the trace:
+and bytes uploaded, each block's turn from its step's call to the end
+of its finalize, and the step's CUDA-graph captures, replays and eager
+steps (the bank's `counts`, parallel/mesh.CarrierBank); its stages are
+the spans below, each timed into `stats` and, while a profiler records,
+a range of the trace:
 
     bank.feed       the whole of `feed`
     bank.fifo       FIFO append and trim, the stacking of a block
@@ -71,6 +73,7 @@ class DVBS2BankStream:
         self._votes = [collections.deque(maxlen=vote_frames)
                        for _ in range(n_carriers)]
         self.detected_pls = np.full(n_carriers, -1, np.int64)
+        self.stats = PipelineStats()
         self._configure(mc, short, pilots, block_symbols, program=program)
         self.parsers = [make_bbframe_parser(self.cfg.kbch)
                         for _ in range(n_carriers)]
@@ -82,7 +85,6 @@ class DVBS2BankStream:
         self.frames_ok = np.zeros(n_carriers, np.int64)
         self.ldpc_trials = np.zeros(n_carriers, np.int32)
         self.sync_quality = np.zeros(n_carriers, np.float32)
-        self.stats = PipelineStats()
         self._inflight = collections.deque()    # (block, ns at its step)
         self._dispatched = 0                    # blocks stepped
 
@@ -111,6 +113,9 @@ class DVBS2BankStream:
                 device=self._build_opts["device"],
                 stream_outputs=True,
                 n_iters_full=self._build_opts["max_ldpc_trials"])
+        counts = getattr(self.step_fn, "counts", None)
+        if counts is not None:
+            self.stats.step_counts.append(counts)
         # geometry mirrors DVBS2Receiver (mesh builds the same core)
         L = self.cfg.plframe_len
         self.edge_margin = 256

@@ -114,7 +114,8 @@ def decode_qc(llr: torch.Tensor, table: str, n_iters: int = 16,
     post = llr_to_post(llr.to(torch.float32), G, q).reshape(-1, B).contiguous()
     msgs = [torch.zeros((lay["D"], LANES, B), dtype=torch.bfloat16,
                         device=dev) for lay in sch["layers"]]
-    big = torch.tensor(1e30, dtype=torch.float32, device=dev)
+    # a fill, not a copy from the host: the step is captured (graphs.py)
+    big = torch.full((), 1e30, dtype=torch.float32, device=dev)
     q_all, D_all, _ = sch["shape_all"]
 
     def syndrome_bad() -> torch.Tensor:

@@ -25,6 +25,7 @@ from torch import nn
 
 import torch.distributed as dist
 
+from .. import graphs
 from ..profiling import span
 from ..spec import modcod
 from ..models.dvbs2 import DVBS2Receiver, frames_per_block, run_fec
@@ -44,7 +45,15 @@ def bank_block_symbols(n_carriers: int = 8, mc: int = 4,
 
 
 class CarrierBank(nn.Module):
-    """The bank step: symbol program + FEC + BCH check + packing."""
+    """The bank step: symbol program + FEC + BCH check + packing.
+
+    On a CUDA input the step runs as CUDA graphs (graphs.StepGraph): the
+    first call for an input key (shape, dtype, device) runs `enqueue`
+    eagerly, which sets up what a capture cannot; the second captures it
+    in segments cut at its layer spans; every later call replays them
+    inside those spans. A new key captures again; a CPU input runs
+    eagerly. `counts` holds the steps run eagerly and replayed and the
+    captures (each capture's call also replays)."""
 
     def __init__(self, rx: DVBS2Receiver, n_carriers: int, n_iters: int,
                  ingest: str, stream_outputs: bool):
@@ -55,6 +64,9 @@ class CarrierBank(nn.Module):
         self.n_iters = n_iters
         self.ingest = ingest
         self.stream_outputs = stream_outputs
+        self.counts = dict(graph_captures=0, graph_replays=0, eager_steps=0)
+        self._graph = None          # the chain of the latest key captured
+        self._warm = set()          # keys run eagerly once
 
     def fec(self, llrs: torch.Tensor, n_iters: int) -> dict:
         """llrs [C*F, nldpc] float -> kbch_bytes, trials, ldpc_ok,
@@ -64,7 +76,17 @@ class CarrierBank(nn.Module):
 
     def forward(self, samples: torch.Tensor) -> dict:
         with span("bank.step"):
-            return self.enqueue(samples)
+            key = graphs.input_key(samples)
+            if samples.device.type != "cuda" or key not in self._warm:
+                self._warm.add(key)
+                self.counts["eager_steps"] += 1
+                return self.enqueue(samples)
+            if self._graph is None or self._graph.key != key:
+                self._graph = None          # its pool goes first
+                self._graph = graphs.StepGraph(self.enqueue, samples)
+                self.counts["graph_captures"] += 1
+            self.counts["graph_replays"] += 1
+            return self._graph(samples)
 
     def enqueue(self, samples: torch.Tensor) -> dict:
         """The step's launches (forward less its `bank.step` span)."""

@@ -12,6 +12,10 @@ PyTorch port of dvbs_tpu/profiling.py. Three surfaces:
   `stats` the span is a shared no-op (what stays alive while it is
   open is the `with` statement's bound `__exit__`, as for any context
   manager; a `@contextmanager` function makes two objects more).
+  While a CUDA-graph capture is in progress (`capturing`, graphs.py)
+  every span goes to the capture's hook instead, which cuts the capture
+  at the span's edges; outside one that costs a span one check of a
+  module-level value and the call of `open_span`.
 - `device_trace(path)`: context manager around torch.profiler that
   records host and device activity of everything inside the block and
   writes a Chrome trace (Perfetto, chrome://tracing) to `path`.
@@ -19,7 +23,8 @@ PyTorch port of dvbs_tpu/profiling.py. Three surfaces:
   block: samples in, frames seen/ok, TS bytes out, LDPC trial
   histogram, the bank's escalations, host BCH repairs, FIFO bytes
   copied and bytes uploaded, each block's turn from its step's call to
-  the end of its finalize, and the spans' totals. Always on.
+  the end of its finalize, the step's CUDA-graph captures and replays
+  and its eager steps, and the spans' totals. Always on.
 
 Usage:
     stream = DVBS2Stream(...)
@@ -108,12 +113,38 @@ def span(name: str, stats=None):
     """A span of host code named `name`: timed into `stats` (a
     `PipelineStats`) where given, and a profiler range of that name
     while a profiler records."""
+    if _capture is not None:
+        return _capture(name, stats)
+    return open_span(name, stats)
+
+
+def open_span(name: str, stats=None):
+    """`span` as it is outside a capture: what a capture's hook opens."""
     if _profiler_enabled():
         return _Traced(name, None if stats is None else stats.timer(name))
     if stats is None:
         return _NULL
     t = stats._timers.get(name)
     return t if t is not None else stats.timer(name)
+
+
+_capture = None     # the span hook of the capture in progress, if any
+
+
+@contextlib.contextmanager
+def capturing(hook):
+    """Inside the block every `span(name, stats)` returns `hook(name,
+    stats)`, a context manager that opens `open_span(name, stats)` in
+    its turn (graphs.SegmentRecorder.span, which cuts a CUDA-graph
+    capture at the span's edges). One capture at a time."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("a capture is already in progress")
+    _capture = hook
+    try:
+        yield
+    finally:
+        _capture = None
 
 
 @contextlib.contextmanager
@@ -151,6 +182,10 @@ class PipelineStats:
         self.fifo_bytes = 0          # FIFO concatenation and block stacking
         self.upload_bytes = 0        # host to device
         self.turns = collections.deque(maxlen=TURNS_KEPT)   # (block, ns)
+        # the counters of each step program the stream has run
+        # (parallel/mesh.CarrierBank.counts: graph captures, replays and
+        # eager steps), summed in the report
+        self.step_counts = []
         self._t_start = time.perf_counter()
 
     def timer(self, name: str) -> _Timer:
@@ -193,6 +228,12 @@ class PipelineStats:
             f"{self.bch_repaired}  fifo bytes {self.fifo_bytes}  "
             f"uploaded bytes {self.upload_bytes}",
         ]
+        if self.step_counts:
+            tot = {}
+            for counts in self.step_counts:
+                for k, v in counts.items():
+                    tot[k] = tot.get(k, 0) + v
+            lines.append("  ".join(f"{k} {v}" for k, v in tot.items()))
         if self.turns:
             ms = np.array([ns for _, ns in self.turns]) / 1e6
             lines.append(f"turn ms (last {len(ms)} blocks): median "

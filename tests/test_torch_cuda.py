@@ -43,13 +43,18 @@ Tolerances and why:
   (cuBLAS and cuSOLVER against the CPU's BLAS and LAPACK);
 - the sharded builds at world size 1 over NCCL against the unsharded
   programs on the card: every output exact (the same kernels on the
-  same inputs).
+  same inputs);
+- the bank step replayed as CUDA graphs (graphs.py) against its eager
+  `enqueue` on the same blocks: every output and the launch counts
+  exact (the same kernels on the same inputs, in the same order).
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from dvbs_tpu_torch import backend, tables
+from dvbs_tpu_torch import backend, graphs, profiling, tables
 from dvbs_tpu_torch.kernels import probe_resample as pr
 from dvbs_tpu_torch.models.driver import DVBS2Stream
 from dvbs_tpu_torch.models.dvbs import DVBSStream
@@ -378,6 +383,112 @@ def test_bank_step_llrs_with_kernel_match_plain(dev, monkeypatch):
     assert bool(ref["ldpc_ok"].all())
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
         assert torch.equal(got[k], ref[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the bank step as CUDA graphs (graphs.py)
+# ---------------------------------------------------------------------------
+
+# 2-carrier banks of 4 frames a step: MODCOD, short, pilots, fec, Es/N0 dB
+GRAPH_BANKS = {"32apsk34p": (24, False, True, "int8", 14.5),
+               "qpsk12": (4, False, False, "int8", 6.0),
+               "qpsk12_xla": (4, True, False, "xla", 6.0)}
+
+
+def _bank_blocks(mc, short, pilots, snr, blocks=4):
+    """`blocks` cs4 blocks of a 2-carrier bank, each a quarter block on
+    from the last, and the bank's block symbols."""
+    cfg = modcod.get_config(mc, short=short, pilots=pilots)
+    block = mesh.bank_block_symbols(2, mc=mc, short=short, pilots=pilots,
+                                    frames_total=4)
+    n = 2 * block
+    need = n + (blocks - 1) * (n // 4)
+    per_frame = (cfg.kbch - 80) // 8 // 188
+    n_pkts = (need // (2 * cfg.plframe_len) + 3) * per_frame
+    sigs = []
+    for seed, cfo in ((51, 0.005 * np.pi), (52, -0.008 * np.pi)):
+        pkts = dvbs2_mod.random_ts_packets(n_pkts, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=snr, cfo=cfo,
+                           delay_samples=0.3, sco_ppm=10.0, seed=seed + 1)
+        assert len(y) >= need
+        sigs.append(pack_cs4(y[:need]))
+    sig = np.stack(sigs)
+    return [sig[:, k * (n // 4):k * (n // 4) + n] for k in range(blocks)], \
+        block
+
+
+@pytest.mark.parametrize("case", list(GRAPH_BANKS))
+def test_replayed_bank_step_equals_enqueue(dev, case):
+    """Consecutive blocks through the bank (the first call eager, the
+    second captured, then replays): every output equal to the eager
+    `enqueue` on the same block bit for bit, the same launch counts a
+    step, and each block's outputs unchanged by the replays after it; a
+    new input shape captures again."""
+    mc, short, pilots, fec, snr = GRAPH_BANKS[case]
+    blocks, block = _bank_blocks(mc, short, pilots, snr)
+    xs = [torch.from_numpy(np.ascontiguousarray(b)).to(dev) for b in blocks]
+    step, _, _ = mesh.build_carrier_bank(
+        2, mc=mc, short=short, pilots=pilots, block_symbols=block, fec=fec,
+        ingest="cs4", stream_outputs=True, device=dev)
+    ref, ref_launches = [], []
+    with torch.no_grad():
+        for x in xs:
+            backend.reset_launches()
+            ref.append(step.enqueue(x))
+            ref_launches.append(dict(backend.LAUNCHES))
+        got, kept = [], []
+        for x, launches in zip(xs, ref_launches):
+            backend.reset_launches()
+            got.append(step(x))
+            assert backend.LAUNCHES == launches
+            kept.append({k: v.cpu() for k, v in got[-1].items()})
+    assert step.counts == dict(graph_captures=1, graph_replays=3,
+                               eager_steps=1)
+    assert step._graph.segments >= 8        # the layers' spans at least
+    if fec == "int8":
+        assert ref_launches[0]["ldpc_layered"] == 1
+        assert ref_launches[0]["soft_demap"] == 1
+    assert bool(ref[0]["ldpc_ok"].any())
+    for g, k, r in zip(got, kept, ref):
+        assert g.keys() == r.keys()
+        for name in r:
+            assert torch.equal(g[name], r[name]), (case, name)
+            assert torch.equal(g[name].cpu(), k[name]), (case, name)
+
+    one = xs[0][:1].contiguous()            # a new input shape
+    with torch.no_grad():
+        want = step.enqueue(one)
+        step(one)                           # eager: a new key
+        out = step(one)                     # captured again
+    assert step.counts == dict(graph_captures=2, graph_replays=4,
+                               eager_steps=2)
+    for name in want:
+        assert torch.equal(out[name], want[name]), (case, name)
+
+
+def test_recorder_leaves_out_empty_graphs(dev):
+    """Span edges with no launch between them: torch's capture_end warns
+    with graphs.EMPTY for each graph that captured nothing, and the
+    recorder leaves those out of the chain and holds back their warning;
+    the chain still replays what it captured. Fails if torch's warning
+    no longer starts with graphs.EMPTY."""
+    def fn(x):
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                x.add_(1.0)
+        return {"x": x}
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = graphs.StepGraph(fn, torch.zeros(4, device=dev))
+    assert not [w for w in caught if graphs.EMPTY in str(w.message)]
+    # a graph before, between and after the four edges; only the one
+    # inside "inner" captured anything
+    assert len(step.graphs) == 5 and step.segments == 1
+    out = step(torch.full((4,), 2.0, device=dev))
+    assert torch.equal(out["x"], torch.full((4,), 3.0, device=dev))
 
 
 VITERBI_SHAPES = {"noisy": (256, 704), "ragged": (130, 151),
