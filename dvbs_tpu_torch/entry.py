@@ -192,6 +192,7 @@ def dryrun_rank(n_devices: int) -> list:
     """One rank of the dry run (dvbs_tpu's __graft_entry__.dryrun_multichip
     on torch.distributed): its three parts, each checked; returns the
     lines it reports."""
+    from .models.dvbs2 import frames_per_block
     from .parallel.mesh import bank_block_symbols
     from .spec import modcod
     cfg = modcod.get_config(4, short=True)
@@ -214,7 +215,7 @@ def dryrun_rank(n_devices: int) -> list:
         # the {carrier, time} grid: each carrier's own halo ring
         C, T = n_devices // 2, 2
         L = cfg.plframe_len
-        F = (BLOCK - 2 * 256 - 90) // L - 1
+        F = frames_per_block(cfg, BLOCK)
         gout = grid_sharded_rank(grid_signals(C, T, 2 * F * L))
         gok = gout["ldpc_ok"]                      # [C, T, F]
         if not gok[:, 0].all():
@@ -224,7 +225,7 @@ def dryrun_rank(n_devices: int) -> list:
                      f"ok ({int(gok[:, 0].sum())} wrap-free frames)")
     # the streaming driver over the sharded bank: >= 2 block seams
     bs = bank_block_symbols(n_devices, mc=4, short=True, frames_total=8)
-    F = (bs - 2 * 256 - 90) // cfg.plframe_len - 1
+    F = frames_per_block(cfg, bs)
     need = 2 * bs + 2 * 2 * F * cfg.plframe_len + 2 * cfg.plframe_len
     sigs, sents = stream_signals(n_devices, need)
     st = bank_stream_rank(sigs, bs)

@@ -3,8 +3,9 @@
 PyTorch port of dvbs_tpu/models/bank_stream.py. The host logic is the
 JAX version's, unchanged: per-carrier sample FIFOs with damped-advance
 frame-boundary continuity, pipelined look-ahead dispatch, per-carrier
-finalize (full-budget LDPC escalation rerun, host BCH repair of flagged
-frames, quality gating, TS/GSE parse with mark_gap resync), bank-level
+finalize (the frame decision of models/frames: quality gating, full-
+budget LDPC escalation rerun, host BCH repair of flagged frames; TS/GSE
+parse with mark_gap resync), bank-level
 auto-MODCOD, and get_state/set_state checkpoints of the same format.
 Only its two seams differ: `_upload` hands the step a tensor on the
 bank's device, and `_finalize` fetches with `.cpu()`.
@@ -41,15 +42,16 @@ import torch
 
 from .. import backend
 from ..profiling import PipelineStats, span
-from ..spec import modcod, scrambling, bch_spec
+from ..spec import modcod
 from ..ops import frontend
+from . import frames
 from .driver import make_bbframe_parser
+from .dvbs2 import (EDGE_MARGIN, GUARD, frames_per_block,
+                    look_ahead_advance)
 
 
 class DVBS2BankStream:
     """Continuous N-carrier DVB-S2 demodulation, one device program."""
-
-    GUARD = 64
 
     def __init__(self, n_carriers: int, mc: int = 4, short: bool = False,
                  pilots: bool = False, block_symbols: int | None = None,
@@ -57,7 +59,7 @@ class DVBS2BankStream:
                  n_iters: int = 12, max_ldpc_trials: int = 32,
                  sof_threshold: float = 0.6, device=None, program=None,
                  auto_modcod: bool = True, on_modcod_switch=None,
-                 vote_frames: int = 50):
+                 vote_frames: int = frames.VOTE_FRAMES):
         self.C = n_carriers
         self.sof_threshold = sof_threshold
         self.ingest = ingest
@@ -75,8 +77,6 @@ class DVBS2BankStream:
         self.detected_pls = np.full(n_carriers, -1, np.int64)
         self.stats = PipelineStats()
         self._configure(mc, short, pilots, block_symbols, program=program)
-        self.parsers = [make_bbframe_parser(self.cfg.kbch)
-                        for _ in range(n_carriers)]
         self._fifos = [np.zeros(0, np.complex64) for _ in range(n_carriers)]
         self._expected_start = np.full(n_carriers, -1, np.int64)
         self._pending = None
@@ -90,8 +90,7 @@ class DVBS2BankStream:
 
     def _configure(self, mc, short, pilots, block_symbols=None,
                    program=None):
-        """(Re)build the device program for a MODCOD. Used by __init__
-        and by the bank-level auto-MODCOD switch."""
+        """(Re)build the device program and the parsers for a MODCOD."""
         from ..parallel.mesh import build_carrier_bank, bank_block_symbols
         if block_symbols is None:
             block_symbols = bank_block_symbols(self.C, mc=mc, short=short,
@@ -117,13 +116,25 @@ class DVBS2BankStream:
         if counts is not None:
             self.stats.step_counts.append(counts)
         # geometry mirrors DVBS2Receiver (mesh builds the same core)
-        L = self.cfg.plframe_len
-        self.edge_margin = 256
-        self.F = (block_symbols - 2 * self.edge_margin - 90) // L - 1
-        self._next_adv = np.full(self.C, 2 * self.F * L, np.int64)
-        # an auto-MODCOD rebuild keeps the bank's frame-lane scale
-        # rather than re-deriving the default 128-lane geometry
+        self.edge_margin = EDGE_MARGIN
+        self.F = frames_per_block(self.cfg, block_symbols)
+        self._next_adv = np.full(self.C, 2 * self.F * self.cfg.plframe_len,
+                                 np.int64)
         self._frames_total = self.F * self.C
+        self.parsers = [make_bbframe_parser(self.cfg.kbch)
+                        for _ in range(self.C)]
+
+    def _reconfigure(self, pls_code: int):
+        """Rebuild for `pls_code` at the bank's frame-lane scale, not the
+        default 128-lane geometry."""
+        from ..parallel.mesh import bank_block_symbols
+        cfg = modcod.from_pls_code(pls_code)
+        short = cfg.framesize == "short"
+        self._configure(cfg.modcod, short, cfg.pilots,
+                        block_symbols=bank_block_symbols(
+                            self.C, mc=cfg.modcod, short=short,
+                            pilots=cfg.pilots,
+                            frames_total=self._frames_total))
 
     def _maybe_switch_modcod(self) -> bool:
         """Bank-level MODCOD switch: every carrier must reach a 45/50
@@ -136,28 +147,20 @@ class DVBS2BankStream:
         top = tops[0]
         if top < 0 or (tops != top).any() or top == self.cfg.pls_code:
             return False
-        need = int(0.9 * self._vote_n + 0.5)
+        need = frames.supermajority(self._vote_n)
         if not all(len(v) >= self._vote_n and
                    (np.array(v) == top).sum() >= need
                    for v in self._votes):
             return False
-        mc = int(top) >> 2
-        if mc not in range(1, 29):
+        if int(top) >> 2 not in range(1, 29):
             return False
-        from ..parallel.mesh import bank_block_symbols
         try:
-            short, pilots = bool(top & 2), bool(top & 1)
-            self._configure(mc, short, pilots,
-                            block_symbols=bank_block_symbols(
-                                self.C, mc=mc, short=short, pilots=pilots,
-                                frames_total=self._frames_total))
+            self._reconfigure(int(top))
         except ValueError:
             return False
         for v in self._votes:
             v.clear()
         self.detected_pls[:] = -1
-        self.parsers = [make_bbframe_parser(self.cfg.kbch)
-                        for _ in range(self.C)]
         self._expected_start[:] = -1
         if self.on_modcod_switch is not None:
             self.on_modcod_switch(self.cfg)
@@ -261,36 +264,21 @@ class DVBS2BankStream:
                     # already reset _next_adv; _maybe_switch reset
                     # _expected_start)
                     with span("bank.fifo", self.stats):
-                        for c in range(self.C):
-                            adv = 2 * max(int(last_end[c]) -
-                                          self.edge_margin - self.GUARD, L)
-                            self._fifos[c] = self._fifos[c][adv:]
+                        self._trim(last_end, L, switched=True)
                     self._pending = None
                     self._inflight.clear()
                     continue
                 with span("bank.fifo", self.stats):
                     if ahead is None:
-                        for c in range(self.C):
-                            adv = 2 * max(int(last_end[c]) -
-                                          self.edge_margin - self.GUARD, L)
-                            self._fifos[c] = self._fifos[c][adv:]
-                            self._next_adv[c] = 2 * F_L
-                            self._expected_start[c] = \
-                                int(last_end[c]) - adv // 2
+                        self._trim(last_end, L, switched=False)
                     else:
                         for c in range(self.C):
                             adv = int(self._next_adv[c])
                             self._fifos[c] = self._fifos[c][adv:]
                             self._expected_start[c] = \
                                 int(last_end[c]) - adv // 2
-                            # damped one-block-late advance feedback
-                            # (gain 1/2, models/driver.py:136-145)
-                            d0 = int(last_end[c]) - F_L
-                            err = int(np.clip(
-                                (d0 - (self.edge_margin + self.GUARD)) // 2,
-                                -self.edge_margin // 2,
-                                self.edge_margin // 2))
-                            self._next_adv[c] = 2 * (F_L + err)
+                            self._next_adv[c] = look_ahead_advance(
+                                int(last_end[c]), F_L)
                 self._pending = ahead
             return [bytes(o) for o in outs]
 
@@ -301,21 +289,27 @@ class DVBS2BankStream:
         if self._pending is not None:
             L = self.cfg.plframe_len      # pre-switch frame length
             res = self._finalize(self._pending, outs)
-            last_end = res["last_end"]
-            for c in range(self.C):
-                adv = 2 * max(int(last_end[c]) - self.edge_margin -
-                              self.GUARD, L)
-                self._fifos[c] = self._fifos[c][adv:]
-                if not res.get("switched"):
-                    self._next_adv[c] = 2 * self.F * L
-                    self._expected_start[c] = int(last_end[c]) - adv // 2
+            self._trim(res["last_end"], L, res.get("switched"))
             self._pending = None
         return [bytes(o) for o in outs]
+
+    def _trim(self, last_end, L: int, switched: bool):
+        """Trim each FIFO up to its block's last frame end less the edge
+        margin and GUARD (at least L symbols) for a block read at the
+        head: unless the MODCOD switched (which reset both), the advance
+        back to F frames and the expected start where the frame ended."""
+        for c in range(self.C):
+            adv = 2 * max(int(last_end[c]) - self.edge_margin - GUARD, L)
+            self._fifos[c] = self._fifos[c][adv:]
+            if not switched:
+                self._next_adv[c] = 2 * self.F * L
+                self._expected_start[c] = int(last_end[c]) - adv // 2
 
     # ------------------------------------------------------------------
     def _finalize(self, dev, outs) -> dict:
         """Fetch one dispatched block, escalate/repair, parse per
-        carrier. Mirrors DVBS2Receiver.finalize_block lane-batched."""
+        carrier: DVBS2Receiver.finalize_block's frame decision
+        (models/frames) over the bank's C x F lanes."""
         with span("bank.finalize", self.stats):
             res = self._finalize_block(dev, outs)
         block, t0 = self._inflight.popleft()
@@ -326,82 +320,51 @@ class DVBS2BankStream:
         st = self.stats
         cfg = self.cfg
         llrs = dev.pop("llrs")
-        hard_dev = dev.pop("hard")
+        dev.pop("freq", None)           # not read on the host
         with span("bank.fetch", st):
-            small = {k: v.cpu().numpy() for k, v in dev.items()
-                     if k != "freq"}
+            small, hard = frames.to_host(dev)
         C, F = self.C, self.F
-        quality = small["quality"].reshape(C * F)
-        ldpc_ok = small["ldpc_ok"]
-        bch_bad = small["bch_bad"]
-        kbch_bytes = np.array(small["kbch_bytes"])
-        trials = small["trials"]
-        sync_ok = quality >= self.sof_threshold
-        retried = np.zeros(C * F, bool)
-        hard2_dev = None
-        retry = (~ldpc_ok) & sync_ok
-        if retry.any():
+        sync_ok = frames.gate(small["quality"].reshape(C * F),
+                              self.sof_threshold)
+
+        def rerun():
             with span("bank.escalate", st):
                 st.escalations += 1
-                out2 = self._escalate(llrs)
-                hard2_dev = out2.pop("hard")
-                out2 = {k: v.cpu().numpy() for k, v in out2.items()}
-            for k in ("ldpc_ok", "bch_bad", "kbch_bytes"):
-                small[k] = np.where(
-                    retry.reshape((-1,) + (1,) * (small[k].ndim - 1)),
-                    out2[k], small[k])
-            ldpc_ok, bch_bad = small["ldpc_ok"], small["bch_bad"]
-            kbch_bytes = np.array(small["kbch_bytes"])
-            trials = np.where(retry, self.n_iters + out2["trials"], trials)
-            retried = retry
-        frame_ok = sync_ok & ~bch_bad
+                return frames.to_host(self._escalate(llrs))
+        retried, hard2 = frames.escalate(small, sync_ok, self.n_iters, rerun)
         with span("bank.bch_repair", st):
-            for lane in np.nonzero(sync_ok & bch_bad)[0]:
-                hd = hard2_dev if retried[lane] else hard_dev
-                bits = hd[lane, :cfg.nbch].cpu().numpy()
-                fixed, ncorr = bch_spec.decode(bits, cfg.framesize, cfg.rate)
-                if ncorr < 0:
-                    continue    # BCH-inconsistent = corrupt (see dvbs2.py)
-                frame_ok[lane] = True
-                st.bch_repaired += 1
-                kbch_bytes[lane] = scrambling.bb_scramble_bytes(
-                    np.packbits(fixed[:cfg.kbch]))
+            frame_ok, kbch_bytes, corr = frames.bch_repair(
+                cfg, sync_ok, small, lambda f: (
+                    hard2 if retried[f] else hard)[f, :cfg.nbch].cpu().numpy())
+            st.bch_repaired += int(np.count_nonzero(
+                small["bch_bad"] & (corr >= 0)))
+        trials = small["trials"]
         # per-carrier parse with gap marking (frame failures AND frame-
         # grid jumps — a relocated non-L-periodic frame decodes fine but
         # is not byte-contiguous with its predecessor, models/driver.py)
         fo = frame_ok.reshape(C, F)
         kb = kbch_bytes.reshape(C, F, -1)
         starts = small["starts"]                     # [C, F]
-        plsb = small["pls"].reshape(C, F)
-        confb = small["pls_conf"].reshape(C, F)
+        pls = small["pls"].reshape(C, F)
+        conf = small["pls_conf"].reshape(C, F)
         L = cfg.plframe_len
-        TOL = 12
-        DUMMY = 90 + 36 * 90    # dummy PLFRAME length (driver.DUMMY_LEN)
-        MAXD = 3
 
-        def dummy_deltas_ok(d):
-            return any(abs(d - L - k * DUMMY) <= TOL
-                       for k in range(MAXD + 1))
-
-        def disc0(c):
+        def disc(c, prev_good, i):
+            # a gap before good frame i: not continuous with the previous
+            # good frame (else the slot before); the block's first frame
+            # off the grid the last block predicted, modulo L
+            if prev_good is not None or i > 0:
+                p = i - 1 if prev_good is None else prev_good
+                return not frames.continuous(
+                    int(starts[c, i]) - int(starts[c, p]), L)
             if self._expected_start[c] < 0:
                 return False
             dd = (int(starts[c, 0]) - int(self._expected_start[c])) % L
-            for k in range(MAXD + 1):
-                diff = (dd - k * DUMMY) % L
-                if min(diff, L - diff) <= TOL:
+            for k in range(frames.MAX_DUMMIES + 1):
+                diff = (dd - k * frames.DUMMY_LEN) % L
+                if min(diff, L - diff) <= frames.FRAME_TOL:
                     return False
             return True
-
-        def disc(c, prev_good, i):
-            # continuity vs the previous GOOD frame: exactly one data
-            # frame + k dummy PLFRAMEs between (dummies carry no data
-            # bytes — no gap; models/driver.py:_good_discontinuous)
-            if prev_good is None:
-                return disc0(c) if i == 0 else not dummy_deltas_ok(
-                    int(starts[c, i]) - int(starts[c, i - 1]))
-            return not dummy_deltas_ok(
-                int(starts[c, i]) - int(starts[c, prev_good]))
 
         ts_bytes = 0
         with span("bank.parse", st):
@@ -411,11 +374,8 @@ class DVBS2BankStream:
                 n0 = len(outs[c])
                 while i < F:
                     if not fo[c, i]:
-                        # detected dummy slots skip gap-free (conf bar
-                        # 0.5: all-dummy blocks lose the freq anchor,
-                        # driver.py)
-                        if not (int(plsb[c, i]) >> 2 == 0
-                                and confb[c, i] >= 0.5):
+                        # detected dummy slots skip gap-free
+                        if not frames.is_dummy(pls[c, i], conf[c, i]):
                             self.parsers[c].mark_gap()
                         i += 1
                         continue
@@ -440,12 +400,9 @@ class DVBS2BankStream:
         # carrier driver: off-SOF locator hits while misconfigured read
         # noise PLS — the soft-correlation confidence separates them)
         with span("bank.vote", st):
-            pls = small["pls"].reshape(C, F)
-            conf = small["pls_conf"].reshape(C, F)
             for c in range(C):
                 for i in range(F):
-                    # dummy PLFRAMEs (MODCOD 0) neither win nor dilute
-                    if conf[c, i] >= 0.7 and int(pls[c, i]) >> 2 != 0:
+                    if frames.admits_vote(pls[c, i], conf[c, i]):
                         self._votes[c].append(int(pls[c, i]))
                 if len(self._votes[c]) >= self._vote_n:
                     vals, counts = np.unique(np.array(self._votes[c]),
@@ -473,19 +430,7 @@ class DVBS2BankStream:
 
     def set_state(self, st: dict):
         if st["pls_code"] != self.cfg.pls_code:
-            # checkpoint taken after an auto-MODCOD switch: rebuild the
-            # program for the checkpointed MODCOD (as DVBS2Stream does),
-            # keeping this bank's frame-lane scale
-            from ..parallel.mesh import bank_block_symbols
-            cfg = modcod.from_pls_code(st["pls_code"])
-            short = cfg.framesize == "short"
-            self._configure(cfg.modcod, short, cfg.pilots,
-                            block_symbols=bank_block_symbols(
-                                self.C, mc=cfg.modcod, short=short,
-                                pilots=cfg.pilots,
-                                frames_total=self._frames_total))
-            self.parsers = [make_bbframe_parser(self.cfg.kbch)
-                            for _ in range(self.C)]
+            self._reconfigure(st["pls_code"])   # as DVBS2Stream does
         self._votes = [collections.deque(v, maxlen=self._vote_n)
                        for v in st.get("votes",
                                        [[] for _ in range(self.C)])]

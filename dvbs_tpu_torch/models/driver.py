@@ -20,7 +20,8 @@ from ..spec import modcod
 from ..io.bbframe_parser import BBFrameParser
 from ..io import native as _native
 from ..profiling import PipelineStats, span
-from .dvbs2 import DVBS2Receiver
+from . import frames
+from .dvbs2 import GUARD, DVBS2Receiver, look_ahead_advance
 
 
 def make_bbframe_parser(kbch: int):
@@ -56,8 +57,6 @@ class Metrics:
 class DVBS2Stream:
     """Continuous DVB-S2 demodulation with auto-MODCOD support."""
 
-    GUARD = 64
-
     def __init__(self, mc: int = 4, short: bool = False, pilots: bool = False,
                  block_symbols: int = 1 << 17, auto_modcod: bool = False,
                  max_ldpc_trials: int = 32, fec: str = "xla",
@@ -73,7 +72,7 @@ class DVBS2Stream:
         # the reference persists after reconfigure (main.cpp:383-408)
         self.on_modcod_switch = None
         self._fifo = np.zeros(0, np.complex64)
-        self._vote = collections.deque(maxlen=50)
+        self._vote = collections.deque(maxlen=frames.VOTE_FRAMES)
         self.metrics = Metrics()
         self.stats = PipelineStats()
         self._configure(mc, short, pilots)
@@ -136,17 +135,15 @@ class DVBS2Stream:
             # frames at the seam. Advance only past the last NON-dummy
             # slot and re-center serially (drop the look-ahead — its
             # samples are still in the FIFO) whenever dummies appeared.
-            okv = np.asarray(res.frame_ok)
-            dummies = [self._is_dummy_slot(res, i) for i in range(len(okv))]
-            nd = [i for i in range(len(okv)) if not dummies[i]]
-            if res.starts is not None and nd:
+            dummies = [self._is_dummy_slot(res, i)
+                       for i in range(len(res.frame_ok))]
+            nd = [i for i, d in enumerate(dummies) if not d]
+            if nd:
                 last_end = int(res.starts[nd[-1]]) + rx.cfg.plframe_len
-            elif res.starts is not None and len(okv):
+            else:
                 # all slots were dummies: their pitch is DUMMY_LEN, not
                 # L — advancing by slot+L would overrun the next data
-                last_end = int(res.starts[-1]) + self.DUMMY_LEN
-            else:
-                last_end = int(res.last_frame_end)
+                last_end = int(res.starts[-1]) + frames.DUMMY_LEN
             F_L = rx.n_frames * rx.cfg.plframe_len
             if switched or ahead is None or any(dummies):
                 # serial tail: consume by the measured frame positions
@@ -154,8 +151,8 @@ class DVBS2Stream:
                 # config is stale — its samples are still in the FIFO.
                 # Progress floor DUMMY_LEN (not L): an all-dummy block
                 # may legitimately consume less than one data frame
-                adv_actual = 2 * max(last_end - rx.edge_margin - self.GUARD,
-                                     self.DUMMY_LEN)
+                adv_actual = 2 * max(last_end - rx.edge_margin - GUARD,
+                                     frames.DUMMY_LEN)
                 self._fifo = self._fifo[adv_actual:]
                 self._pending = None
                 self._next_adv = 2 * self.rx.n_frames * \
@@ -170,14 +167,7 @@ class DVBS2Stream:
                 self._pending = ahead
                 self._expected_start = last_end - adv // 2
                 self._abs_base += adv // 2
-                # boundary drift of the retired block -> advance trim.
-                # Gain 1/2 damps the one-block-delayed feedback loop
-                # (d[i+1] = d[i] - g*d[i-1] + c has |roots| < 1 only for
-                # g < 1; g = 1 is a marginally-stable oscillator)
-                d0 = last_end - F_L            # == located starts[0]
-                err = int(np.clip((d0 - (rx.edge_margin + self.GUARD)) // 2,
-                                  -rx.edge_margin // 2, rx.edge_margin // 2))
-                self._next_adv = 2 * (F_L + err)
+                self._next_adv = look_ahead_advance(last_end, F_L)
         return bytes(out)
 
     def set_params(self, mc: int | None = None, short: bool | None = None,
@@ -193,40 +183,24 @@ class DVBS2Stream:
                         pilots if pilots is not None else self.cfg.pilots)
         self._vote.clear()
 
-    FRAME_TOL = 12      # symbols of start jitter before a gap is marked
-    DUMMY_LEN = 90 + 36 * 90   # dummy PLFRAME (EN 302 307-1 sec. 5.5.1)
-    MAX_DUMMIES = 3     # consecutive dummies absorbed without a gap
-
     def _is_dummy_slot(self, res, i: int) -> bool:
-        """Frame slot i holds a detected dummy PLFRAME. The confidence
-        bar is LOWER than the modcod vote's 0.7: in an all-dummy block
-        no header matches the configured PLS code, the block-common
-        freq estimate loses its anchor, and genuine dummies read at
-        ~0.65-0.74 confidence."""
-        if res.detected_pls is None:
-            return False
-        conf = (float(res.detected_pls_conf[i])
-                if res.detected_pls_conf is not None else 1.0)
-        return int(res.detected_pls[i]) >> 2 == 0 and conf >= 0.5
-
+        """Frame slot i holds a detected dummy PLFRAME."""
+        return frames.is_dummy(res.detected_pls[i],
+                               res.detected_pls_conf[i])
 
     def _parse_frames(self, res) -> bytes:
         """Feed the block's good BBFRAMEs to the TS/GSE parser, marking
         an explicit gap wherever a frame failed or the frame grid
         jumped (see BBFrameParser.mark_gap) so packet reassembly
         realigns at the next SYNCD instead of silently concatenating
-        across the hole. Consecutive good continuous frames are fed as
-        one batch (in the common all-good block that is a single native
-        parser call)."""
+        across the hole."""
         out = bytearray()
         ok = np.asarray(res.frame_ok)
-        starts = res.starts
         L = self.cfg.plframe_len
         fi = 0
         i = 0
         while i < len(ok):
-            a = None if starts is None else \
-                self._abs_base + int(starts[i])
+            a = self._abs_base + int(res.starts[i])
             if not ok[i]:
                 # failed frames are absent from res.bbframes: fi stays.
                 # A confidently-detected DUMMY PLFRAME (MODCOD 0) in the
@@ -237,12 +211,12 @@ class DVBS2Stream:
                 # re-decode of an already-fed frame (block overlap on a
                 # non-L-periodic grid) is no loss either.
                 if not self._is_dummy_slot(res, i) and \
-                        (a is None or self._last_fed_abs is None
+                        (self._last_fed_abs is None
                          or a > self._last_fed_abs + L // 2):
                     self.parser.mark_gap()
                 i += 1
                 continue
-            if a is not None and self._last_fed_abs is not None:
+            if self._last_fed_abs is not None:
                 d = a - self._last_fed_abs
                 if d < L // 2:
                     # duplicate of an already-fed frame (the block
@@ -250,14 +224,12 @@ class DVBS2Stream:
                     fi += 1
                     i += 1
                     continue
-                if all(abs(d - L - k * self.DUMMY_LEN) > self.FRAME_TOL
-                       for k in range(self.MAX_DUMMIES + 1)):
+                if not frames.continuous(d, L):
                     # not one-data-frame(+dummies) away: data was lost
                     # or the grid jumped — realign at the next SYNCD
                     self.parser.mark_gap()
             out.extend(self.parser.feed(res.bbframes[fi:fi + 1]))
-            if a is not None:
-                self._last_fed_abs = a
+            self._last_fed_abs = a
             fi += 1
             i += 1
         return bytes(out)
@@ -301,7 +273,8 @@ class DVBS2Stream:
     def set_state(self, st: dict):
         cfg = modcod.from_pls_code(st["pls_code"])
         self._configure(cfg.modcod, cfg.framesize == "short", cfg.pilots)
-        self._vote = collections.deque(st["vote"], maxlen=50)
+        self._vote = collections.deque(st["vote"],
+                                       maxlen=frames.VOTE_FRAMES)
         self._fifo = st["fifo"].copy()
         self.parser.set_state(st["parser_state"])
         self._expected_start = st.get("expected_start")
@@ -316,14 +289,10 @@ class DVBS2Stream:
         length), the locator lands off-SOF on some frames and their PLS
         reads are noise — the soft-correlation confidence separates them.
         """
-        conf = res.detected_pls_conf if res.detected_pls_conf is not None \
-            else np.ones(len(res.detected_pls))
-        for pls, c in zip(res.detected_pls, conf):
-            # dummy PLFRAMEs (MODCOD 0) are idle filler, not a signal
-            # configuration — they must neither win nor dilute the vote
-            if c >= 0.7 and int(pls) >> 2 != 0:
+        for pls, c in zip(res.detected_pls, res.detected_pls_conf):
+            if frames.admits_vote(pls, c):
                 self._vote.append(int(pls))
-        if not self.auto_modcod or len(self._vote) < 50:
+        if not self.auto_modcod or len(self._vote) < frames.VOTE_FRAMES:
             return False
         # 90% supermajority (the reference requires strict unanimity over
         # every frame, main.cpp:383-395, but its per-frame re-correlation
@@ -331,7 +300,8 @@ class DVBS2Stream:
         # configured frame length is wrong, so near-miss codewords occur)
         vals, counts = np.unique(np.array(self._vote), return_counts=True)
         top = int(vals[counts.argmax()])
-        if counts.max() >= 45 and top != self.cfg.pls_code and \
+        if counts.max() >= frames.supermajority(frames.VOTE_FRAMES) and \
+                top != self.cfg.pls_code and \
                 (top >> 2) in range(1, 29):
             mc, short, pilots = (top >> 2), bool(top & 2), bool(top & 1)
             try:

@@ -16,8 +16,8 @@ estimates for streams that hold dummy PLFRAMEs.
 `DVBS2Receiver` is the fixed-MODCOD block receiver: geometry, the
 symbol program at C = 1, the FEC (the float decode_qc, or the int8
 layered decoder's kernel on the F frames as they are), the two-pass
-escalation, and the host side (sync-quality gate, BCH repair of flagged
-frames). `equalize=True` inserts the block LMS equalizer
+escalation, and the host side (models/frames: sync-quality gate, BCH
+repair of flagged frames). `equalize=True` inserts the block LMS equalizer
 (ops/equalizer.lms_equalize) after timing recovery and before PL sync,
 where dvbs_tpu inserts it.
 """
@@ -30,10 +30,11 @@ import torch
 from torch import nn
 
 from ..profiling import span
-from ..spec import bch_spec, modcod, scrambling
+from ..spec import modcod
 from .. import backend, tables
 from ..ops import (bch, demap, equalizer, frontend, interleaver,
                    ldpc_kernel, ldpc_qc, plhdr, plphase, plsync)
+from . import frames
 
 
 class SymbolProgram(nn.Module):
@@ -196,11 +197,22 @@ class BlockResult:
 
 
 EDGE_MARGIN = 256       # symbols kept clear at each end of a block
+GUARD = 64              # symbols a stream keeps before a block's margin
 
 
 def frames_per_block(cfg: modcod.ModcodConfig, block_symbols: int) -> int:
     """PL frames a block of `block_symbols` symbols decodes."""
     return (block_symbols - 2 * EDGE_MARGIN - 90) // cfg.plframe_len - 1
+
+
+def look_ahead_advance(last_end: int, F_L: int) -> int:
+    """Samples to the look-ahead block: F frames (F_L symbols) less half
+    the retired block's first frame's (`last_end` - F_L) drift from
+    EDGE_MARGIN + GUARD, within half the margin. Gain 1/2 damps the
+    one-block-late loop (g = 1 would be a marginally-stable oscillator)."""
+    err = int(np.clip((last_end - F_L - (EDGE_MARGIN + GUARD)) // 2,
+                      -EDGE_MARGIN // 2, EDGE_MARGIN // 2))
+    return 2 * (F_L + err)
 
 
 class DVBS2Receiver:
@@ -265,53 +277,24 @@ class DVBS2Receiver:
         return out
 
     def finalize_block(self, out: dict) -> BlockResult:
-        """Fetch a dispatched block's small outputs and run the host side:
-        the full-budget rerun of a block with unconverged, well-synced
-        frames, and BCH repair of flagged frames (only their hard-bit
-        rows are fetched)."""
+        """Fetch a dispatched block's small outputs and run the host side
+        (models/frames): the sync gate, the full-budget rerun of a block
+        with unconverged, well-synced frames, and BCH repair of flagged
+        frames (only their hard-bit rows are fetched)."""
         cfg = self.cfg
         llrs = out.pop("_llrs", None)
-        hard_dev = out.pop("hard")
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        F = out["ldpc_ok"].shape[0]
-        retried = np.zeros(F, bool)
-        hard2_dev = None
-        if llrs is not None:
-            retry = (~out["ldpc_ok"]) & (out["quality"] >= self.sof_threshold)
-            if retry.any():
-                with torch.no_grad():
-                    out2 = self._fec(llrs, self.max_ldpc_trials)
-                hard2_dev = out2.pop("hard")
-                out2 = {k: v.cpu().numpy() for k, v in out2.items()}
-                for k in ("ldpc_ok", "bch_bad", "kbch_bytes"):
-                    out[k] = np.where(
-                        retry.reshape((-1,) + (1,) * (out[k].ndim - 1)),
-                        out2[k], out[k])
-                out["trials"] = np.where(
-                    retry, self.pass1_iters + out2["trials"], out["trials"])
-                retried = retry
-        plain = np.array(out["kbch_bytes"])   # descrambled on the device
-        bch_bad = out["bch_bad"]
-        # frames below the PL-sync correlation threshold are noise:
-        # rejected before any host BCH work is spent on them
-        sync_ok = out["quality"] >= self.sof_threshold
-        bch_corr = np.full(F, -1, np.int32)
-        frame_ok = sync_ok & ~bch_bad
-        bch_corr[frame_ok] = 0
-        for f in np.nonzero(sync_ok & bch_bad)[0]:
-            hd = hard2_dev if retried[f] else hard_dev
-            bits = hd[f, :cfg.nbch].cpu().numpy()
-            fixed, ncorr = bch_spec.decode(bits, cfg.framesize, cfg.rate)
-            bch_corr[f] = ncorr
-            if ncorr < 0:
-                # BCH-inconsistent even after repair: the LDPC decoder
-                # settled on a wrong codeword; one garbage BBHEADER would
-                # desync the TS parser, so the frame is rejected and the
-                # parser gets a mark_gap instead
-                continue
-            frame_ok[f] = True
-            plain[f] = scrambling.bb_scramble_bytes(
-                np.packbits(fixed[:cfg.kbch]))
+        out, hard = frames.to_host(out)
+        sync_ok = frames.gate(out["quality"], self.sof_threshold)
+
+        def rerun():
+            with torch.no_grad():
+                return frames.to_host(self._fec(llrs, self.max_ldpc_trials))
+        # a block of one pass (no llrs kept) reruns nothing
+        retried, hard2 = frames.escalate(
+            out, sync_ok & (llrs is not None), self.pass1_iters, rerun)
+        frame_ok, plain, bch_corr = frames.bch_repair(
+            cfg, sync_ok, out, lambda f: (hard2 if retried[f] else hard)[
+                f, :cfg.nbch].cpu().numpy())
         return BlockResult(
             bbframes=plain[frame_ok],
             frame_ok=frame_ok,

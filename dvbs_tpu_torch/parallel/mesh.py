@@ -28,7 +28,8 @@ import torch.distributed as dist
 from .. import graphs
 from ..profiling import span
 from ..spec import modcod
-from ..models.dvbs2 import DVBS2Receiver, frames_per_block, run_fec
+from ..models.dvbs2 import (EDGE_MARGIN, DVBS2Receiver, frames_per_block,
+                            run_fec)
 from ..ops import frontend, ldpc_kernel
 from . import collectives
 
@@ -40,7 +41,7 @@ def bank_block_symbols(n_carriers: int = 8, mc: int = 4,
     `frames_total` without exceeding it (mesh.bank_block_symbols)."""
     cfg = modcod.get_config(mc, short=short, pilots=pilots)
     per = max(1, frames_total // n_carriers)
-    raw = (per + 1) * cfg.plframe_len + 2 * 256 + 90
+    raw = (per + 1) * cfg.plframe_len + 2 * EDGE_MARGIN + 90
     return -(-raw // 64) * 64
 
 
