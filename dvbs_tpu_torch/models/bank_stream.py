@@ -8,12 +8,22 @@ budget LDPC escalation rerun, host BCH repair of flagged frames; TS/GSE
 parse with mark_gap resync), bank-level
 auto-MODCOD, and get_state/set_state checkpoints of the same format.
 Only its two seams differ: `_upload` hands the step a tensor on the
-bank's device, and `_finalize` fetches with `.cpu()`.
+bank's device, and each step's small outputs come to the host early:
+`_dispatch` queues their non-blocking copies to the host (pinned by
+PyTorch's caching host allocator, which holds each buffer until its
+copy is done) and an event after them right after the step, before
+anything else goes on the stream, so that `_finalize` of a block waits
+for its own step and copies, not for the look-ahead step queued after
+them (a look-ahead block is dispatched only where the FIFOs already
+hold it, as when a caller feeds more than a block at once). On the
+CPU the outputs are the host tensors themselves and there is no event.
 
 Observability: `stats` (profiling.PipelineStats) counts blocks, frames,
 TS bytes, LDPC sweeps, escalations, host BCH repairs, FIFO bytes copied
 and bytes uploaded, each block's turn from its step's call to the end
-of its finalize, and the step's CUDA-graph captures, replays and eager
+of its finalize, the early fetches issued and those whose copies had
+completed when their block's `_finalize` began (`fetches`,
+`fetch_ready`), and the step's CUDA-graph captures, replays and eager
 steps (the bank's `counts`, parallel/mesh.CarrierBank); its stages are
 the spans below, each timed into `stats` and, while a profiler records,
 a range of the trace:
@@ -23,9 +33,11 @@ a range of the trace:
     bank.upload     `_upload`: packing and the host-to-device copy
     bank.step       the enqueue of one step (the range opens inside the
                     step, parallel/mesh.CarrierBank.forward)
+    bank.prefetch   the copies of a step's small outputs to the host and
+                    the event after them, queued right after the step
     bank.finalize   the whole of `_finalize`, and inside it
-      bank.fetch      the step's small outputs to the host (waits for
-                      the step)
+      bank.fetch      the wait on the block's event (its step and its
+                      copies) and the host tensors' numpy views
       bank.escalate   the full-budget rerun and its fetch
       bank.bch_repair the host BCH of flagged frames
       bank.parse      gap marking and the TS parsers
@@ -48,6 +60,13 @@ from . import frames
 from .driver import make_bbframe_parser
 from .dvbs2 import (EDGE_MARGIN, GUARD, frames_per_block,
                     look_ahead_advance)
+
+
+# the step's outputs brought to the host: all but "llrs" and "hard",
+# which stay on the device for the escalation and the BCH repair, and
+# "freq" and "cfo", which the host does not read
+FETCHED = ("kbch_bytes", "trials", "ldpc_ok", "bch_bad", "quality", "pls",
+           "pls_conf", "starts")
 
 
 class DVBS2BankStream:
@@ -213,7 +232,23 @@ class DVBS2BankStream:
         self._inflight.append((self._dispatched, time.perf_counter_ns()))
         self._dispatched += 1
         with self.stats.timer("bank.step"):
-            return self.step_fn(x)
+            out = self.step_fn(x)
+        with span("bank.prefetch", self.stats):
+            out["host"] = self._prefetch(out)
+        return out
+
+    def _prefetch(self, out: dict) -> tuple:
+        """Queue the copies of a step's FETCHED outputs to the host and,
+        for outputs on a card, an event after them on that device's
+        current stream: (the host tensors, the event or None)."""
+        host = {k: out[k].to("cpu", non_blocking=True) for k in FETCHED}
+        dev = out[FETCHED[0]].device
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        self.stats.fetches += 1
+        return host, event
 
     # ------------------------------------------------------------------
     def feed(self, per_carrier) -> list[bytes]:
@@ -307,8 +342,8 @@ class DVBS2BankStream:
 
     # ------------------------------------------------------------------
     def _finalize(self, dev, outs) -> dict:
-        """Fetch one dispatched block, escalate/repair, parse per
-        carrier: DVBS2Receiver.finalize_block's frame decision
+        """Read one dispatched block's early fetch, escalate/repair,
+        parse per carrier: DVBS2Receiver.finalize_block's frame decision
         (models/frames) over the bank's C x F lanes."""
         with span("bank.finalize", self.stats):
             res = self._finalize_block(dev, outs)
@@ -319,10 +354,13 @@ class DVBS2BankStream:
     def _finalize_block(self, dev, outs) -> dict:
         st = self.stats
         cfg = self.cfg
-        llrs = dev.pop("llrs")
-        dev.pop("freq", None)           # not read on the host
+        llrs, hard = dev["llrs"], dev["hard"]
+        host, event = dev["host"]
         with span("bank.fetch", st):
-            small, hard = frames.to_host(dev)
+            st.fetch_ready += event is None or event.query()
+            if event is not None:
+                event.synchronize()
+            small = {k: t.numpy() for k, t in host.items()}
         C, F = self.C, self.F
         sync_ok = frames.gate(small["quality"].reshape(C * F),
                               self.sof_threshold)

@@ -22,9 +22,11 @@ PyTorch port of dvbs_tpu/profiling.py. Three surfaces:
 - `PipelineStats`: host-side counters the streaming drivers update per
   block: samples in, frames seen/ok, TS bytes out, LDPC trial
   histogram, the bank's escalations, host BCH repairs, FIFO bytes
-  copied and bytes uploaded, each block's turn from its step's call to
-  the end of its finalize, the step's CUDA-graph captures and replays
-  and its eager steps, and the spans' totals. Always on.
+  copied and bytes uploaded, its early fetches of a step's small
+  outputs and those complete when their block's finalize began, each
+  block's turn from its step's call to the end of its finalize, the
+  step's CUDA-graph captures and replays and its eager steps, and the
+  spans' totals. Always on.
 
 Usage:
     stream = DVBS2Stream(...)
@@ -181,6 +183,8 @@ class PipelineStats:
         self.bch_repaired = 0        # frames repaired by the host BCH
         self.fifo_bytes = 0          # FIFO concatenation and block stacking
         self.upload_bytes = 0        # host to device
+        self.fetches = 0             # the bank's early fetches issued
+        self.fetch_ready = 0         # of them, done when finalize began
         self.turns = collections.deque(maxlen=TURNS_KEPT)   # (block, ns)
         # the counters of each step program the stream has run
         # (parallel/mesh.CarrierBank.counts: graph captures, replays and
@@ -228,6 +232,9 @@ class PipelineStats:
             f"{self.bch_repaired}  fifo bytes {self.fifo_bytes}  "
             f"uploaded bytes {self.upload_bytes}",
         ]
+        if self.fetches:
+            lines.append(f"fetches {self.fetches}  fetch_ready "
+                         f"{self.fetch_ready}")
         if self.step_counts:
             tot = {}
             for counts in self.step_counts:

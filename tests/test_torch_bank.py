@@ -8,7 +8,12 @@ Two carriers of short-frame DVB-S2 QPSK 1/2 at 6 dB, cs4 ingest:
   from its own tables and from the tables dvbs_tpu builds;
 - DVBS2BankStream over 3 blocks plus flush emits the same TS bytes as
   dvbs_tpu's DVBS2BankStream;
-- a checkpoint taken by dvbs_tpu's stream resumes in the port's.
+- a checkpoint taken by dvbs_tpu's stream resumes in the port's;
+- fed two blocks a call (so that a look-ahead block is in flight while
+  the pending one finalizes), the port's stream gives dvbs_tpu's TS
+  bytes after every call through an auto-MODCOD switch that discards a
+  look-ahead block (QPSK 2/3 carriers, a bank built for QPSK 1/2), a
+  flush and a get_state / set_state in the middle of the stream.
 
 Tolerances and why:
 - exact: kbch_bytes, ldpc_ok, bch_bad, starts, pls, TS bytes (decoded
@@ -201,3 +206,123 @@ def test_dvbs_tpu_checkpoint_resumes_in_port(signals, jax_stream_ts):
         o.extend(c)
     for c in range(C):
         assert bytes(outs[c]) == jax_stream_ts[c]
+
+
+# ---------------------------------------------------------------------------
+# a look-ahead block in flight: a switch, a flush and a checkpoint
+# ---------------------------------------------------------------------------
+
+def _parts(sigs, lo, hi, chunk=2 * N):
+    """The calls' samples that feed [lo, hi) in `chunk`s."""
+    return [[s[a:min(a + chunk, hi)] for s in sigs]
+            for a in range(lo, hi, chunk)]
+
+
+def _look_aheads(st) -> list:
+    """Whether each of the stream's dispatches was a look-ahead."""
+    ahead, dispatch = [], st._dispatch
+
+    def spy(*a):
+        ahead.append(st._pending is not None)
+        return dispatch(*a)
+    st._dispatch = spy
+    return ahead
+
+
+@pytest.fixture(scope="module")
+def switch_signals():
+    """Two QPSK 2/3 carriers at 8 dB, cs4: ~6 blocks of samples, the
+    fewest on which the vote switches while a look-ahead is in flight."""
+    cfg = modcod.get_config(6, short=SHORT)
+    sigs, sents = [], []
+    for seed, cfo, delay in ((131, 0.005 * np.pi, 0.4),
+                             (147, -0.009 * np.pi, 0.8)):
+        pkts = dvbs2_mod.random_ts_packets(130, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=8.0, cfo=cfo,
+                           delay_samples=delay, sco_ppm=10.0, seed=seed + 1)
+        sigs.append(pack_cs4(y))
+        sents.append(pkts.reshape(-1, 188))
+    n = min(len(s) for s in sigs)
+    return [s[:n] for s in sigs], sents
+
+
+def test_switch_discarding_a_look_ahead_same_ts(switch_signals):
+    """The vote switches the bank to QPSK 2/3 while a look-ahead block
+    of the stale program is in flight: it is discarded, early fetch and
+    all, and the rebuilt program's blocks give dvbs_tpu's TS bytes."""
+    sigs, sents = switch_signals
+    kw = dict(mc=MC, short=SHORT, block_symbols=BLOCK, fec="xla",
+              ingest="cs4", vote_frames=4)
+    js = JaxBankStream(C, **kw)
+    st = DVBS2BankStream(C, device="cpu", **kw)
+    switched = []
+    st.on_modcod_switch = lambda cfg: switched.append(st._dispatched)
+    outs = [bytearray(), bytearray()]
+    for p in _parts(sigs, 0, len(sigs[0])):
+        got = st.feed(p)
+        assert got == js.feed(p)
+        for c, o in zip(got, outs):
+            o.extend(c)
+    got = st.flush()
+    assert got == js.flush()
+    assert st.cfg.modcod == js.cfg.modcod == 6
+    assert len(switched) == 1
+    assert st._dispatched == st.stats.blocks + 1     # one discarded
+    assert st.stats.fetches == st._dispatched
+    per_frame = st.cfg.kbch // 8 // 188
+    for c, o in zip(got, outs):
+        o.extend(c)
+    for c in range(C):
+        assert _contiguous(bytes(outs[c]), sents[c]) >= 2 * st.F * per_frame
+
+
+SPLIT = 4 * N           # where the flush or the checkpoint falls
+
+
+@pytest.fixture(scope="module")
+def mid_stream_ts(signals):
+    """dvbs_tpu's stream fed two blocks a call up to SPLIT, then 4 blocks
+    more after a flush and, from a checkpoint taken at SPLIT, after a
+    set_state: (the prefix's TS bytes a call, {"flush": ..., "state":
+    ...} the rest's, the final flush's last), one stream for both."""
+    sigs = signals[0]
+    js = JaxBankStream(C, mc=MC, short=SHORT, block_symbols=BLOCK,
+                       fec="xla", ingest="cs4")
+    prefix = [js.feed(p) for p in _parts(sigs, 0, SPLIT)]
+    blob = js.get_state()
+    rest = _parts(sigs, SPLIT, SPLIT + 4 * N)
+    after = {"flush": [js.flush()] + [js.feed(p) for p in rest]}
+    after["flush"].append(js.flush())
+    js.set_state(blob)
+    after["state"] = [js.feed(p) for p in rest] + [js.flush()]
+    return prefix, after
+
+
+@pytest.mark.parametrize("how", ["flush", "state"])
+def test_flush_or_checkpoint_mid_stream_same_ts(signals, mid_stream_ts, how):
+    """A flush, or a get_state / set_state of the stream's own state,
+    between two calls of a stream fed two blocks a call (look-aheads
+    dispatched inside each call; `feed` returns with none in flight):
+    the TS bytes of dvbs_tpu's stream doing the same, after every
+    call."""
+    sigs = signals[0]
+    prefix, after = mid_stream_ts
+    st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=BLOCK,
+                         fec="xla", ingest="cs4", device="cpu")
+    ahead = _look_aheads(st)
+    got = [st.feed(p) for p in _parts(sigs, 0, SPLIT)]
+    assert got == prefix
+    assert st._pending is None and any(ahead)
+    if how == "flush":
+        got = [st.flush()]
+    else:
+        st.set_state(st.get_state())
+        got = []
+    got += [st.feed(p) for p in _parts(sigs, SPLIT, SPLIT + 4 * N)]
+    got.append(st.flush())
+    assert got == after[how]
+    assert st.stats.fetches == st._dispatched == st.stats.blocks
+    assert sum(ahead) >= 2
+    assert all(any(len(g[c]) for g in got) for c in range(C))

@@ -46,7 +46,11 @@ Tolerances and why:
   same inputs);
 - the bank step replayed as CUDA graphs (graphs.py) against its eager
   `enqueue` on the same blocks: every output and the launch counts
-  exact (the same kernels on the same inputs, in the same order).
+  exact (the same kernels on the same inputs, in the same order);
+- the bank stream on the card, fed two blocks a call with a long sleep
+  queued behind each look-ahead step, against the same stream on the
+  CPU: TS bytes exact (a 6 dB QPSK 1/2 signal decodes to the packets
+  sent on both).
 """
 import warnings
 
@@ -56,6 +60,7 @@ import torch
 
 from dvbs_tpu_torch import backend, graphs, profiling, tables
 from dvbs_tpu_torch.kernels import probe_resample as pr
+from dvbs_tpu_torch.models.bank_stream import DVBS2BankStream
 from dvbs_tpu_torch.models.driver import DVBS2Stream
 from dvbs_tpu_torch.models.dvbs import DVBSStream
 from dvbs_tpu_torch.models.dvbs2 import DVBS2Receiver
@@ -260,6 +265,76 @@ def test_small_pilots_bank_on_card_matches_cpu(dev):
     for k in ("kbch_bytes", "ldpc_ok", "bch_bad", "pls"):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
     assert np.abs(gpu["quality"] - cpu["quality"]).max() <= 1e-3
+
+
+def _bank_stream_ts(d, sigs, block, sleep_cycles=0):
+    """A 2-carrier QPSK 1/2 bank stream on device `d` fed two blocks a
+    call, then flushed: (TS bytes per carrier, the stream, for each
+    finalize that ran after a look-ahead step and the sleep of
+    `sleep_cycles` queued behind it, whether the stream was still busy
+    when the finalize returned, and for each finalize then, whether the
+    block's host copies were pinned)."""
+    st = DVBS2BankStream(2, mc=4, short=True, block_symbols=block,
+                         fec="int8", ingest="cs4", device=d)
+    busy, armed, pinned = [], [], []
+    if sleep_cycles:
+        step, finalize = st.step_fn, st._finalize
+
+        def step_fn(x):
+            out = step(x)
+            if st._pending is not None:         # a look-ahead step
+                torch.cuda._sleep(sleep_cycles)
+                armed.append(True)
+            return out
+
+        def spy(dev_out, outs):
+            host, _ = dev_out["host"]
+            pinned.append(all(t.is_pinned() for t in host.values()))
+            res = finalize(dev_out, outs)
+            if armed:
+                busy.append(not torch.cuda.current_stream(d).query())
+                armed.clear()
+            return res
+        st.step_fn, st._finalize = step_fn, spy
+    outs = [bytearray(), bytearray()]
+    n, chunk = len(sigs[0]), 4 * block
+    for lo in range(0, n, chunk):
+        for c, o in zip(st.feed([s[lo:lo + chunk] for s in sigs]), outs):
+            o.extend(c)
+    for c, o in zip(st.flush(), outs):
+        o.extend(c)
+    return [bytes(o) for o in outs], st, busy, pinned
+
+
+def test_bank_finalize_waits_on_its_own_step_only(dev):
+    """The early fetch: a block's finalize waits on the event after its
+    own step's copies, not on the look-ahead step queued after them. A
+    sleep of ~0.25 s queued behind every look-ahead step is still
+    running when the pending block's finalize returns (the signal is
+    clean, so no escalation or BCH repair fetches behind it); the
+    copies land in pinned memory; the TS bytes equal the CPU's."""
+    cfg = modcod.get_config(4, short=True)
+    block = mesh.bank_block_symbols(2, mc=4, short=True, frames_total=4)
+    sigs = []
+    for seed, cfo in ((7, 0.004 * np.pi), (8, -0.009 * np.pi)):
+        pkts = dvbs2_mod.random_ts_packets(200, seed=seed)
+        tx = dvbs2_mod.bbframes_to_plframes(
+            dvbs2_mod.ts_to_bbframes(pkts, cfg), cfg).reshape(-1)
+        y = channel.impair(channel.shape(tx, sps=2), snr_db=6.0, cfo=cfo,
+                           delay_samples=0.3, sco_ppm=10.0, seed=seed)
+        sigs.append(pack_cs4(y))
+    n = min(len(s) for s in sigs)
+    sigs = [s[:n] for s in sigs]
+    want, _, _, _ = _bank_stream_ts(torch.device("cpu"), sigs, block)
+    got, st, busy, pinned = _bank_stream_ts(dev, sigs, block,
+                                            sleep_cycles=500_000_000)
+    assert st.stats.escalations == 0 and st.stats.bch_repaired == 0
+    assert len(busy) >= 3 and all(busy), busy
+    assert pinned and all(pinned)
+    assert st.stats.fetches == st._dispatched
+    assert st.stats.fetch_ready <= st.stats.blocks
+    assert (st.frames_ok == st.frames_seen).all()
+    assert got == want and all(len(t) > 0 for t in got)
 
 
 # ---------------------------------------------------------------------------

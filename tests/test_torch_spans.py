@@ -13,6 +13,9 @@ spans and counters, on the CPU; no JAX.
   without;
 - the bank's stats count blocks, frames, samples, FIFO bytes, uploaded
   bytes and turns consistently with what was fed;
+- the early fetch: one `bank.prefetch` a dispatched step, inside
+  `bank.feed` and apart from `bank.step` and `bank.finalize`; the
+  stats' `fetches` and `fetch_ready` and their line of the report;
 - the CLI's `--control` command `metrics` prints a bank's numbers (the
   DVB-S2 bank's stats report, the DVB-S bank's lock and BER).
 
@@ -176,6 +179,11 @@ def _inside(inner, outer):
                for a, b in inner)
 
 
+def _apart(one, other):
+    """No span of `one` overlaps a span of `other`."""
+    return not any(a < b0 and a0 < b for a, b in one for a0, b0 in other)
+
+
 def test_bank_spans_nest_in_the_trace(traced):
     st, _, calls, ev = traced
     feeds = _spans(ev, "bank.feed")
@@ -198,6 +206,23 @@ def test_bank_spans_nest_in_the_trace(traced):
         assert _spans(ev, name), name
     assert _spans(ev, "resample")
     assert _inside(_spans(ev, "resample"), _spans(ev, "timing"))
+
+
+def test_bank_prefetch_span_apart_from_step_and_finalize(traced):
+    """The copies of a step's small outputs are queued under their own
+    span, one a dispatched step, inside `bank.feed` and outside the
+    step's and the finalize's spans (which keep counting their own
+    work); `bank.fetch` stays one a block, inside `bank.finalize`."""
+    st, _, _, ev = traced
+    pre = _spans(ev, "bank.prefetch")
+    assert len(pre) == st._dispatched == st.stats.fetches
+    assert _inside(pre, _spans(ev, "bank.feed"))
+    for name in ("bank.step", "bank.finalize"):
+        assert _apart(pre, _spans(ev, name)), name
+    fins = _spans(ev, "bank.finalize")
+    fetch = _spans(ev, "bank.fetch")
+    assert len(fetch) == len(fins) == st.stats.blocks
+    assert _inside(fetch, fins)
 
 
 def test_bank_ts_same_with_and_without_a_profiler(signals, traced):
@@ -232,6 +257,21 @@ def test_bank_stats_count_what_was_fed(signals):
                  "bank.finalize", "bank.fetch", "bank.parse", "bank.vote"):
         assert f"stage {name}" in rep
     assert "turn ms" in rep and "fifo bytes" in rep
+
+
+def test_bank_counts_its_early_fetches(signals):
+    """`fetches` counts every dispatched step; `fetch_ready` the blocks
+    whose copies had completed when their finalize began, at most one a
+    block, and on the CPU (copies made at once, no event) every block;
+    the report prints both."""
+    st, _, _ = _run(signals)
+    s = st.stats
+    assert s.fetches == st._dispatched == s.stages["bank.prefetch"][1]
+    assert s.fetch_ready <= s.blocks
+    assert s.fetch_ready == s.blocks
+    rep = s.report()
+    assert f"fetches {s.fetches}  fetch_ready {s.fetch_ready}" in rep
+    assert "stage bank.prefetch" in rep
 
 
 def _stdin_with(monkeypatch, text: str):
